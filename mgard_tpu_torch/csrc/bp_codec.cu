@@ -1,0 +1,194 @@
+// K2-K4: the segmented chunked bitplane codec (ops/bitplane.py).
+//
+// A segment of n float32 values is cut into chunks of 32*C values; value
+// i*C + g of chunk c sits at row i, column g (values past n read as 0).
+// Column g of a chunk is one 32-value group: its 32 zigzag words are
+// bit-transposed so that plane word b holds bit b of the group's values
+// (bit i of the word = bit b of value i*C + g).  Chunk c with exponent
+// e_c emits planes 0..e_c-1 (LSB first), C words each, at rows
+// offsets[c] .. offsets[c] + e_c - 1 of one shared stream.
+//
+// Every kernel maps one thread to one column g of one chunk: the thread
+// keeps its 32 words in registers, the 5-stage butterfly transposes them
+// there, and the loads and stores of a warp touch 32 consecutive words
+// of one row, so all global traffic is coalesced.  All three are bound
+// by bytes (a few integer operations per byte moved).
+//
+//   K2 bp_quant_max             replaces mgard_tpu/ops/pallas_kernels.py:527
+//   K3 bp_quant_condense        replaces mgard_tpu/ops/pallas_kernels.py:459
+//   K4 bp_decode_condense_f32   replaces mgard_tpu/ops/pallas_kernels.py:605
+//
+// The TPU kernels' DMA loops, 33-way switches and SMEM meta packing exist
+// only so that Mosaic issues copies at dynamic offsets; here a thread
+// stores at a computed address instead.
+//
+// Rounding follows the JAX package's quantizer exactly: x * inv_q with
+// __fmul_rn, |.| + 0.5 with __fadd_rn (no contraction into an FMA
+// whatever -fmad says), truncation, sign restored, then zigzag.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+template <int SH, uint32_t MASK>
+__device__ __forceinline__ void butterfly_step(uint32_t (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i & SH) continue;
+    const uint32_t a = r[i], b = r[i | SH];
+    const uint32_t t = ((a >> SH) ^ b) & MASK;
+    r[i] = a ^ (t << SH);
+    r[i | SH] = b ^ t;
+  }
+}
+
+// 32x32 bit-matrix transpose in registers; the same five masked
+// shift/xor rounds as mgard_tpu/ops/pallas_kernels.py:48 (_butterfly_rows).
+__device__ __forceinline__ void butterfly(uint32_t (&r)[32]) {
+  butterfly_step<16, 0x0000FFFFu>(r);
+  butterfly_step<8, 0x00FF00FFu>(r);
+  butterfly_step<4, 0x0F0F0F0Fu>(r);
+  butterfly_step<2, 0x33333333u>(r);
+  butterfly_step<1, 0x55555555u>(r);
+}
+
+// Quantize one value; status 2 = non-finite input, 1 = |x*inv_q|+0.5
+// reaches 2^31 (the int cast would be undefined, so no word is formed).
+__device__ __forceinline__ uint32_t quant_zigzag(float v, float invq,
+                                                 int& status) {
+  const float xs = __fmul_rn(v, invq);
+  const float a = __fadd_rn(fabsf(xs), 0.5f);
+  if (!isfinite(v)) {
+    status = 2;
+    return 0u;
+  }
+  if (a >= 2147483648.0f) {
+    status = status > 1 ? status : 1;
+    return 0u;
+  }
+  const int t = static_cast<int>(truncf(a));
+  const int q = xs < 0.0f ? -t : t;
+  return (static_cast<uint32_t>(q) << 1) ^ static_cast<uint32_t>(q >> 31);
+}
+
+__device__ __forceinline__ void load_quant(const float* __restrict__ x,
+                                           long long n, size_t base, int C,
+                                           float invq, uint32_t (&r)[32],
+                                           int& status) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const size_t k = base + static_cast<size_t>(i) * C;
+    const float v = k < static_cast<size_t>(n) ? x[k] : 0.0f;
+    r[i] = quant_zigzag(v, invq, status);
+  }
+}
+
+__global__ void bp_quant_max_kernel(const float* __restrict__ x, long long n,
+                                    int C, float invq,
+                                    uint32_t* __restrict__ zmax,
+                                    int* __restrict__ status) {
+  const int c = blockIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  uint32_t m = 0u;
+  int st = 0;
+  if (g < C) {
+    uint32_t r[32];
+    load_quant(x, n, static_cast<size_t>(c) * 32 * C + g, C, invq, r, st);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) m = r[i] > m ? r[i] : m;
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  st = __reduce_max_sync(0xffffffffu, st);
+  if ((threadIdx.x & 31) == 0) {
+    if (m) atomicMax(zmax + c, m);
+    if (st) atomicMax(status + c, st);
+  }
+}
+
+__global__ void bp_quant_condense_kernel(const float* __restrict__ x,
+                                         long long n, int C, float invq,
+                                         const int* __restrict__ offsets,
+                                         const int* __restrict__ e,
+                                         uint32_t* __restrict__ words) {
+  const int c = blockIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  const int ec = e[c];
+  if (g >= C || ec == 0) return;
+  uint32_t r[32];
+  int st = 0;
+  load_quant(x, n, static_cast<size_t>(c) * 32 * C + g, C, invq, r, st);
+  butterfly(r);
+  const size_t row0 = static_cast<size_t>(offsets[c]);
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    if (b < ec) words[(row0 + b) * C + g] = r[b];
+  }
+}
+
+__global__ void bp_decode_condense_f32_kernel(
+    const uint32_t* __restrict__ words, int C,
+    const int* __restrict__ offsets, const int* __restrict__ e,
+    float quantum, float* __restrict__ out, long long n) {
+  const int c = blockIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  if (g >= C) return;
+  const int ec = e[c];
+  const size_t row0 = static_cast<size_t>(offsets[c]);
+  uint32_t r[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    r[b] = b < ec ? words[(row0 + b) * C + g] : 0u;
+  }
+  butterfly(r);
+  const size_t base = static_cast<size_t>(c) * 32 * C + g;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const size_t k = base + static_cast<size_t>(i) * C;
+    if (k < static_cast<size_t>(n)) {
+      const int v = static_cast<int>(r[i] >> 1) ^ -static_cast<int>(r[i] & 1u);
+      out[k] = __fmul_rn(__int2float_rn(v), quantum);
+    }
+  }
+}
+
+dim3 codec_grid(int nchunks, int C, int threads) {
+  return dim3(nchunks, (C + threads - 1) / threads);
+}
+
+int codec_threads(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
+
+}  // namespace
+
+extern "C" cudaError_t mgard_bp_quant_max(const float* x, long long n,
+                                          int nchunks, int C, float invq,
+                                          uint32_t* zmax, int* status,
+                                          cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_quant_max_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
+                        stream>>>(x, n, C, invq, zmax, status);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_quant_condense(
+    const float* x, long long n, int nchunks, int C, float invq,
+    const int* offsets, const int* e, uint32_t* words, cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_quant_condense_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
+                             stream>>>(x, n, C, invq, offsets, e, words);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_decode_condense_f32(
+    const uint32_t* words, int nchunks, int C, const int* offsets,
+    const int* e, float quantum, float* out, long long n,
+    cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_decode_condense_f32_kernel<<<codec_grid(nchunks, C, threads), threads,
+                                  0, stream>>>(words, C, offsets, e, quantum,
+                                               out, n);
+  return cudaGetLastError();
+}

@@ -1,0 +1,37 @@
+"""Carrying the JAX package's state into the port.
+
+This system has no weights: its state is the multilevel pyramid and the
+container.  A container written by ``mgard_tpu`` decodes with
+:func:`mgard_tpu_torch.decompress` as it is (the two share the format).
+A pyramid produced by ``mgard_tpu.ops.transform.decompose`` crosses as a
+list of numpy arrays, one per level, coarsest first.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..hierarchy import Hierarchy
+
+__all__ = ["pyramid_from_numpy"]
+
+
+def pyramid_from_numpy(hier: Hierarchy, arrays: Sequence[np.ndarray],
+                       device) -> List[torch.Tensor]:
+    """Level arrays (shapes ``hier.shapes``) as float32 tensors on
+    ``device``."""
+    if len(arrays) != hier.L + 1:
+        raise ValueError(f"expected {hier.L + 1} levels, got {len(arrays)}")
+    out = []
+    for l, a in enumerate(arrays):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(hier.shapes[l]):
+            raise ValueError(f"level {l}: expected shape {hier.shapes[l]}, "
+                             f"got {a.shape}")
+        out.append(torch.from_numpy(np.array(a, dtype=np.float32)
+                                    ).to(device))
+    return out
+

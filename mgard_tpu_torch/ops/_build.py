@@ -1,0 +1,118 @@
+"""Build and load the port's CUDA kernels.
+
+All kernel sources (``mgard_tpu_torch/csrc/*.cu``) have a plain
+``extern "C"`` interface, so one ``nvcc`` call builds them into one
+shared library, loaded with :mod:`ctypes`.  No PyTorch headers, no
+``torch.utils.cpp_extension``, no ``ninja``: the build takes seconds.
+
+The library goes into ``mgard_tpu_torch/_build/`` (git-ignored) at first
+use and is rebuilt whenever a source is newer than it.  A failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_PATH = BUILD_DIR / "libmgard_tpu_torch.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = None   # wall time of this process's build, None if reused
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+# argtypes of every launcher; each returns cudaError_t (an int)
+_SIGNATURES = {
+    "mgard_extract_coarse_3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgard_bp_quant_max": (_P, _LL, _I, _I, _F, _P, _P, _P),
+    "mgard_bp_quant_condense": (_P, _LL, _I, _I, _F, _P, _P, _P, _P),
+    "mgard_bp_decode_condense_f32": (_P, _I, _I, _P, _P, _F, _P, _LL, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of mgard_tpu_torch "
+                       "are built on the machine that runs them")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_command(out: Path):
+    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-o", str(out),
+            *(str(s) for s in sources())]
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(s.stat().st_mtime > built for s in sources())
+
+
+def build() -> Path:
+    """Run the one ``nvcc`` call (into a temporary name, then renamed so
+    that a concurrent reader never sees half a library)."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".libmgard_tpu_torch.{os.getpid()}.so"
+    t0 = time.perf_counter()
+    proc = subprocess.run(build_command(tmp), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    build_seconds = time.perf_counter() - t0
+    return LIB_PATH
+
+
+def lib():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            handle = ctypes.CDLL(str(LIB_PATH))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one launcher on PyTorch's current stream and raise on any
+    launch error (a refused launch never runs, and a later synchronize
+    would not report it)."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")

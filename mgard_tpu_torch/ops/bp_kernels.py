@@ -1,0 +1,232 @@
+"""K2-K4: the kernels of the segmented bitplane codec, with their plain
+PyTorch versions (the counterpart of ``mgard_tpu/ops/pallas_kernels.py``).
+
+A segment is a float32 tensor of ``n`` values cut into ``nchunks`` chunks
+of ``32 * C`` values (zero past ``n``); value ``i*C + g`` of a chunk is
+row ``i``, column ``g``.  Stream words live in int32 tensors holding the
+bit patterns of the wire's uint32 words.
+
+* K2 ``bp_quant_max`` (replaces ``pallas_kernels.py:527``): per chunk,
+  the max zigzag word and a status (2 non-finite input, 1 overflow).
+* K3 ``bp_quant_condense`` (replaces ``pallas_kernels.py:459``):
+  quantize, zigzag and bit-transpose; chunk c writes planes
+  0..e_c-1 at stream rows ``offsets[c]...``.
+* K4 ``bp_decode_condense_f32`` (replaces ``pallas_kernels.py:605``):
+  the inverse, dequantized to float32.
+
+Each wrapper launches its CUDA kernel (``csrc/bp_codec.cu``) for a CUDA
+tensor and counts the launch; it takes the plain version only for a
+tensor on the CPU.  All three are bound by bytes: K2 reads the segment,
+K3 reads it and writes the stream rows, K4 reads the rows and writes the
+segment.  The plain versions hold words in int64 (values in [0, 2^32)).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+__all__ = ["bp_quant_max", "bp_quant_condense", "bp_decode_condense_f32",
+           "bp_quant_max_plain", "bp_quant_condense_plain",
+           "bp_decode_condense_f32_plain", "butterfly", "GROUP"]
+
+GROUP = 32
+_U32 = 0xFFFFFFFF
+_MASKS = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+_SHIFTS = (16, 8, 4, 2, 1)
+
+
+# ---------------------------------------------------------------------------
+# Plain building blocks (int64 words)
+# ---------------------------------------------------------------------------
+
+def butterfly(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """32x32 bit-matrix transpose along a length-32 ``dim`` of int64
+    words in [0, 2^32): bit i of out[.., b, ..] = bit b of x[.., i, ..].
+    The five masked shift/xor rounds of ``bitplane._butterfly``."""
+    rows = list(x.unbind(dim))
+    for mask, sh in zip(_MASKS, _SHIFTS):
+        for i in range(GROUP):
+            if i & sh:
+                continue
+            a, b = rows[i], rows[i | sh]
+            t = ((a >> sh) ^ b) & mask
+            rows[i] = a ^ (t << sh)
+            rows[i | sh] = b ^ t
+    return torch.stack(rows, dim)
+
+
+def _chunked(seg: torch.Tensor, nchunks: int, C: int) -> torch.Tensor:
+    """Flatten a segment and zero-pad it to (nchunks, 32, C)."""
+    f = seg.reshape(-1)
+    pad = nchunks * GROUP * C - f.numel()
+    if pad:
+        f = torch.cat([f, f.new_zeros(pad)])
+    return f.reshape(nchunks, GROUP, C)
+
+
+def _quant_zigzag(x: torch.Tensor, inv_q: float) -> torch.Tensor:
+    """float32 -> int64 zigzag words: scale, round half away from zero,
+    zigzag (``pallas_kernels._quant_zigzag_block``).  Undefined where the
+    value overflows int32; the status says so."""
+    xs = x * torch.tensor(inv_q, dtype=torch.float32, device=x.device)
+    t = torch.trunc(xs.abs() + 0.5)
+    q = torch.where(xs < 0, -t, t).to(torch.int32).to(torch.int64)
+    return ((q << 1) ^ (q >> 31)) & _U32
+
+
+def _to_i32(w: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> int32 bit patterns."""
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: tensors must all be on CUDA, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_chunks(seg, nchunks, C):
+    if seg.dtype != torch.float32:
+        raise ValueError("segment must be float32")
+    if not 0 <= seg.numel() <= nchunks * GROUP * C:
+        raise ValueError("segment larger than its chunks")
+
+
+# ---------------------------------------------------------------------------
+# K2: per-chunk zigzag max + status
+# ---------------------------------------------------------------------------
+
+def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
+    x = _chunked(seg, nchunks, C)
+    bad = (~torch.isfinite(x)).flatten(1).any(1)
+    xs = x * torch.tensor(inv_q, dtype=torch.float32, device=x.device)
+    over = (xs.abs() + 0.5 >= 2.0 ** 31).flatten(1).any(1)
+    status = torch.maximum(2 * bad.to(torch.int32), over.to(torch.int32))
+    zmax = _quant_zigzag(x, inv_q).flatten(1).amax(1)
+    return _to_i32(zmax), status
+
+
+def bp_quant_max(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
+    """(zmax int32 (nchunks,) uint32 bit patterns, status int32
+    (nchunks,)) of one float32 segment scaled by ``inv_q``."""
+    _check_chunks(seg, nchunks, C)
+    if seg.device.type == "cpu":
+        return bp_quant_max_plain(seg, nchunks, C, inv_q)
+    _check_cuda("bp_quant_max", seg)
+    zmax = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
+    status = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
+    _build.launch("mgard_bp_quant_max", seg.data_ptr(), seg.numel(),
+                  nchunks, C, float(inv_q), zmax.data_ptr(),
+                  status.data_ptr())
+    bp_quant_max.launches += 1
+    return zmax, status
+
+
+bp_quant_max.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: quantize + zigzag + transpose + condense into the shared stream
+# ---------------------------------------------------------------------------
+
+def bp_quant_condense_plain(seg, nchunks: int, C: int, inv_q: float,
+                            offsets, e, words) -> None:
+    planes = butterfly(_quant_zigzag(_chunked(seg, nchunks, C), inv_q), 1)
+    b = torch.arange(GROUP, device=seg.device)
+    valid = b[None, :] < e[:, None]
+    rows = offsets[:, None].long() + b[None, :]
+    words.view(-1, C)[rows[valid]] = _to_i32(planes[valid])
+
+
+def bp_quant_condense(seg: torch.Tensor, nchunks: int, C: int,
+                      inv_q: float, offsets: torch.Tensor, e: torch.Tensor,
+                      words: torch.Tensor) -> None:
+    """Write the segment's stream rows into ``words`` (int32, a whole
+    number of C-word rows) in place.  ``offsets``/``e``: int32
+    (nchunks,) global row offsets and plane counts of its chunks; the
+    caller sizes ``words`` to hold every row they address
+    (``encode_segments`` gives 33 rows a chunk, and e <= 32)."""
+    _check_chunks(seg, nchunks, C)
+    if offsets.numel() != nchunks or e.numel() != nchunks:
+        raise ValueError("offsets and e need one entry per chunk")
+    if seg.device.type == "cpu":
+        return bp_quant_condense_plain(seg, nchunks, C, inv_q, offsets, e,
+                                       words)
+    _check_cuda("bp_quant_condense", seg, offsets, e, words)
+    if offsets.dtype != torch.int32 or e.dtype != torch.int32 \
+            or words.dtype != torch.int32:
+        raise ValueError("offsets, e and words must be int32")
+    _build.launch("mgard_bp_quant_condense", seg.data_ptr(), seg.numel(),
+                  nchunks, C, float(inv_q), offsets.data_ptr(), e.data_ptr(),
+                  words.data_ptr())
+    bp_quant_condense.launches += 1
+
+
+bp_quant_condense.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: read e_c rows per chunk, transpose back, unzigzag, dequantize
+# ---------------------------------------------------------------------------
+
+def bp_decode_condense_f32_plain(words, C: int, offsets, e, quantum: float,
+                                 n: int) -> torch.Tensor:
+    rows = words.view(-1, C)
+    b = torch.arange(GROUP, device=words.device)
+    idx = (offsets[:, None].long() + b[None, :]).clamp(0, rows.shape[0] - 1)
+    valid = b[None, :] < e[:, None]
+    planes = torch.where(valid[:, :, None], rows[idx].long() & _U32, 0)
+    z = butterfly(planes, 1)
+    v = (z >> 1) ^ -(z & 1)
+    out = v.to(torch.float32) * torch.tensor(quantum, dtype=torch.float32,
+                                             device=words.device)
+    return out.reshape(-1)[:n]
+
+
+def bp_decode_condense_f32(words: torch.Tensor, C: int,
+                           offsets: torch.Tensor, e: torch.Tensor,
+                           quantum: float, n: int) -> torch.Tensor:
+    """Decode one segment of ``n`` values from the stream rows of its
+    chunks (``offsets``/``e`` int32, one entry per chunk), times
+    ``quantum``, as float32."""
+    nchunks = int(offsets.numel())
+    if e.numel() != nchunks or n > nchunks * GROUP * C:
+        raise ValueError("offsets/e do not cover the segment")
+    if words.numel() % C:
+        raise ValueError("the stream must hold whole C-word rows")
+    if words.device.type == "cpu":
+        return bp_decode_condense_f32_plain(words, C, offsets, e, quantum, n)
+    _check_cuda("bp_decode_condense_f32", words, offsets, e)
+    if offsets.dtype != torch.int32 or e.dtype != torch.int32 \
+            or words.dtype != torch.int32:
+        raise ValueError("offsets, e and words must be int32")
+    out = torch.empty(n, dtype=torch.float32, device=words.device)
+    _build.launch("mgard_bp_decode_condense_f32", words.data_ptr(), nchunks,
+                  C, offsets.data_ptr(), e.data_ptr(), float(quantum),
+                  out.data_ptr(), n)
+    bp_decode_condense_f32.launches += 1
+    return out
+
+
+bp_decode_condense_f32.launches = 0
+
+
+def reset_launches() -> None:
+    """Set the launch counters of K1-K4 to 0."""
+    from .extract_kernels import extract_coarse_3d
+    for fn in (extract_coarse_3d, bp_quant_max, bp_quant_condense,
+               bp_decode_condense_f32):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    from .extract_kernels import extract_coarse_3d
+    return {fn.__name__: fn.launches
+            for fn in (extract_coarse_3d, bp_quant_max, bp_quant_condense,
+                       bp_decode_condense_f32)}
+
