@@ -13,15 +13,27 @@ and the script exits non-zero; without a CUDA device it exits non-zero
 before doing anything.
 
 Phases (each prints its wall time):
-  1. setup   - card name and power limit, versions, the kernel build;
-  2. kernels - K1-K4 against their plain versions, on the main path's
-               own inputs (the decomposition of the field), bit-identical,
-               timed with CUDA events;
-  3. main    - mgard_tpu_torch.compress / decompress at 512^3 with the
-               launch counters set to 0 just before and read just after;
-               then the device and host parts timed separately, and a
-               65^3 cross-check of the card against the CPU path;
-  4. summary - the kernels line, the card line, the ok line.
+  1. setup     - card name and power limit, versions, the kernel build;
+  2. kernels   - K1-K6 against their plain versions, on the main path's
+                 own inputs (the decomposition of the field; K5 on the
+                 field at the finest level, K6 on K1's coarse array and
+                 K5's detail), bit-identical, timed with CUDA events, and
+                 the matmul form that K5/K6 replace timed beside them;
+  3. nonuniform- K5 and K6 bit-identical to their plain versions on a
+                 grid with random coordinates: with the weights of 0.5 of
+                 a uniform grid every product is exact, so only such a
+                 grid shows a multiply-add that the compiler contracted;
+  4. main path - mgard_tpu_torch.compress / decompress at 512^3 with the
+                 launch counters set to 0 just before and read just
+                 after; K5 and K6 launch once each;
+  5. timing    - device encode/decode by CUDA events, with the GPK
+                 kernels on and then off (the matmul form), and the host
+                 parts by host clock;
+  6. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+                 only) and (32, 256, 256) (K5/K6 on the card): the
+                 pyramids agree and each container decodes on both
+                 within the tolerance;
+  7. summary   - the kernels line, the card line, the ok line.
 """
 
 from __future__ import annotations
@@ -46,6 +58,12 @@ PEAK_OPS_PER_S = 67e12
 # overflow tests, trunc, cast, sign, zigzag), the 32x32 butterfly (480
 # per 32 values) and dequantize (unzigzag, cast, scale).
 OPS_QUANT, OPS_BUTTERFLY, OPS_DEQUANT = 10, 15, 6
+# One lerp (1 - w) * l + w * r: a subtract, two multiplies, an add.
+OPS_LERP = 4
+# Compression ratio of the main path's field with the matmul-only
+# transform (the port before K5/K6, on an H100); the GPK transform must
+# stay within 1% of it.
+RATIO_MATMUL_ONLY = 2.5212
 
 
 def log(msg: str) -> None:
@@ -123,38 +141,48 @@ def max_abs_diff(a, b) -> float:
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
+def record(results, name, source, replaces, err, ms, plain_ms, nbytes, ops,
+           library_ms=None):
+    """Log one kernel's check and times and append its summary; raise if
+    it differs from its plain version."""
+    b, by = bound_ms(nbytes, ops)
+    log(f"kernel {name}: max_abs_err={err} (tolerance 0: "
+        f"bit-identical) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
+        f"library_ms={library_ms}")
+    if err != 0.0:
+        raise AssertionError(f"{name} differs from its plain version "
+                             f"(max abs err {err})")
+    results.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                        library_ms=library_ms))
+
+
 def check_kernels(hier, v):
     """K1-K4 against their plain versions on the main path's inputs."""
+    import functools
     import torch
     from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
     from mgard_tpu_torch.ops import extract_kernels as xk, transform
+    from mgard_tpu_torch.ops import stencil_kernels as sk
     from mgard_tpu_torch.ops.quantize import inverse_quantum, \
         supremum_quantum
 
     results = []
+    add = functools.partial(record, results)
 
-    def add(name, source, replaces, err, ms, plain_ms, nbytes, ops,
-            library_ms=None):
-        b, by = bound_ms(nbytes, ops)
-        log(f"kernel {name}: max_abs_err={err} (tolerance 0: "
-            f"bit-identical) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}) "
-            f"library_ms={library_ms}")
-        if err != 0.0:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"(max abs err {err})")
-        results.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                            library_ms=library_ms))
-
-    # K1 at every level of the decomposition its gate admits
+    # K1 at every level of the decomposition its gate admits, on the
+    # levels of the main path's own decomposition (K5 where it runs)
     k1_inputs, A = [], v
     for l in range(hier.L, 0, -1):
         if xk.extract_supported(hier, l, A):
             k1_inputs.append((l, A))
         C = transform._extract_old_all(hier, A, l)
-        detail = A - transform._prolong_all(hier, C, l)
+        if sk.gpk_supported(hier, l, A):
+            detail = sk.gpk_detail(hier, A, l)
+        else:
+            detail = A - transform._prolong_all(hier, C, l)
         A = C + transform._correction(hier, detail, l)
     del C, detail, A
     idx = {l: xk._coarse_index(hier, l, v.device) for l, _ in k1_inputs}
@@ -238,19 +266,127 @@ def check_kernels(hier, v):
     return results
 
 
+def stencil_counts(hier, l):
+    """Bytes and operations that K5 and K6 must move and do at level
+    ``l``: each input read once, each output written once; the lerps of
+    B2 on the rows that are parents in dims 0 and 1, of B0 on the columns
+    that are parents in dim 1, and of B1 everywhere, plus one subtract
+    (K5) or add (K6) a value."""
+    n = [hier.dims[d][l].n for d in range(3)]
+    nc = [len(hier.dims[d][l].coarse_pos) for d in range(3)]
+    new = [a - b for a, b in zip(n, nc)]
+    vals = n[0] * n[1] * n[2]
+    ops = OPS_LERP * (nc[0] * nc[1] * new[2] + new[0] * nc[1] * n[2]
+                      + n[0] * new[1] * n[2]) + vals
+    return (8 * vals, ops), (4 * (nc[0] * nc[1] * nc[2]) + 8 * vals, ops)
+
+
+def check_stencil(hier, v):
+    """K5 on the field at the finest level and K6 on K1's coarse array
+    with K5's detail, against their plain versions; the matmul form that
+    they replace timed on the same inputs."""
+    from mgard_tpu_torch.ops import extract_kernels as xk
+    from mgard_tpu_torch.ops import stencil_kernels as sk, transform
+
+    l = hier.L
+    if not sk.gpk_supported(hier, l, v):
+        raise AssertionError(f"the GPK gate refuses level {l}")
+    results = []
+    (b5, o5), (b6, o6) = stencil_counts(hier, l)
+    det = sk.gpk_detail(hier, v, l)
+    err = max_abs_diff(det, sk.gpk_detail_plain(hier, v, l))
+    record(results, "gpk_detail", "mgard_tpu_torch/csrc/stencil.cu",
+           "mgard_tpu/ops/stencil_kernels.py:356", err,
+           cuda_ms(lambda: sk.gpk_detail(hier, v, l), 10),
+           cuda_ms(lambda: sk.gpk_detail_plain(hier, v, l), 3), b5, o5)
+    C = xk.extract_coarse_3d(hier, v, l)
+    err = max_abs_diff(sk.gpk_prolong_add(hier, C, det, l),
+                       sk.gpk_prolong_add_plain(hier, C, det, l))
+    record(results, "gpk_prolong_add", "mgard_tpu_torch/csrc/stencil.cu",
+           "mgard_tpu/ops/stencil_kernels.py:626", err,
+           cuda_ms(lambda: sk.gpk_prolong_add(hier, C, det, l), 10),
+           cuda_ms(lambda: sk.gpk_prolong_add_plain(hier, C, det, l), 3),
+           b6, o6)
+    mm_det = cuda_ms(lambda: v - transform._prolong_all(hier, C, l), 3)
+    mm_add = cuda_ms(lambda: transform._prolong_all(hier, C, l) + det, 3)
+    log(f"matmul form at level {l} (float32 SGEMMs and permutes, the path "
+        f"without K5/K6): A - prolong(C) {mm_det:.4f} ms, prolong(C) + "
+        f"detail {mm_add:.4f} ms")
+    return results
+
+
+def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
+    """K5 and K6 bit-identical to their plain versions on a grid with
+    sorted random coordinates, where the lerp weights are not 0.5."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import extract_kernels as xk
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    rng = np.random.default_rng(seed)
+    coords = []
+    for s in shape:
+        c = np.sort(rng.uniform(size=s))
+        c[0], c[-1] = 0.0, 1.0
+        coords.append(c)
+    hier = mt.Hierarchy(shape, coordinates=coords)
+    l = hier.L
+    A = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).cuda()
+    if not sk.gpk_supported(hier, l, A):
+        raise AssertionError(f"the GPK gate refuses level {l} of {shape}")
+    det = sk.gpk_detail(hier, A, l)
+    plain = sk.gpk_detail_plain(hier, A, l)
+    err5 = max_abs_diff(det, plain)
+    C = xk.extract_coarse_3d(hier, A, l)
+    err6 = max_abs_diff(sk.gpk_prolong_add(hier, C, det, l),
+                        sk.gpk_prolong_add_plain(hier, C, det, l))
+    moved = int((fma_detail(hier, A, l) != plain).sum())
+    log(f"nonuniform {shape}: K5 max_abs_err={err5}, K6 max_abs_err={err6} "
+        f"(tolerance 0); a K5 whose lerps were contracted into FMAs would "
+        f"differ at {moved} of {plain.numel()} values")
+    if err5 != 0.0 or err6 != 0.0:
+        raise AssertionError("K5/K6 differ from their plain versions on a "
+                             "nonuniform grid")
+    if moved == 0:
+        raise AssertionError("the nonuniform grid would not show an FMA "
+                             "contraction")
+
+
+def fma_detail(hier, A, l):
+    """K5's plain version with every lerp contracted as a compiler would
+    without the _rn intrinsics, fma(w, r, (1 - w) * l): the product w * r
+    of two float32 values is exact in float64, so the sum is rounded once
+    (twice only where the float64 sum is not exact, which is rare)."""
+    import torch
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    V = A
+    for d in (2, 0, 1):
+        m, w, _ = sk._mw_arrays(hier, l)[d]
+        shp = [1, 1, 1]
+        shp[d] = -1
+        mt = torch.as_tensor(m, device=A.device).reshape(shp)
+        wt = torch.as_tensor(w, device=A.device).reshape(shp)
+        lo = ((1 - wt) * torch.roll(V, 1, d)).double()
+        lerp = (wt.double() * torch.roll(V, -1, d).double() + lo).float()
+        V = torch.where(mt != 0, lerp, V)
+    return A - V
+
+
 def main_path(v_host):
     """The user's path once, with the launch counters around it."""
     import torch
     import mgard_tpu_torch as mt
-    from mgard_tpu_torch.ops import bp_kernels as bk
+    from mgard_tpu_torch.ops import _build
 
-    bk.reset_launches()
+    _build.reset_launches()
     t0 = time.perf_counter()
     buf = mt.compress(v_host, TOL)
     t1 = time.perf_counter()
     out = mt.decompress(buf)
     t2 = time.perf_counter()
-    counts = bk.launch_counts()
+    counts = _build.launch_counts()
     log(f"main path: compress {1e3 * (t1 - t0):.3f} ms, decompress "
         f"{1e3 * (t2 - t1):.3f} ms (host clock, H2D and D2H included); "
         f"launches {counts}")
@@ -258,6 +394,9 @@ def main_path(v_host):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    if counts["gpk_detail"] != 1 or counts["gpk_prolong_add"] != 1:
+        raise AssertionError("K5/K6 must launch once each per round trip "
+                             f"at {SHAPE}: {counts}")
     if out.shape != v_host.shape or out.dtype != np.float32:
         raise AssertionError(f"output {out.shape} {out.dtype}")
     if not np.isfinite(out).all():
@@ -268,21 +407,35 @@ def main_path(v_host):
         f"{ratio!r}, {len(buf)} bytes")
     if not err <= TOL:
         raise AssertionError(f"error {err} exceeds the tolerance {TOL}")
+    if not abs(ratio / RATIO_MATMUL_ONLY - 1) <= 0.01:
+        raise AssertionError(f"ratio {ratio} is not within 1% of "
+                             f"{RATIO_MATMUL_ONLY}")
     del out
     torch.cuda.synchronize()
     return buf, counts
 
 
+def time_device(comp, v, exps, words, label):
+    """Device encode and decode by CUDA events."""
+    enc_ms = cuda_ms(lambda: comp.encode_device(v, TOL), 3)
+    dec_ms = cuda_ms(lambda: comp.decode_device(exps, words, TOL), 3)
+    gb = v.numel() * v.element_size() / 1e9
+    log(f"{label}: device encode {enc_ms:.3f} ms "
+        f"({gb / enc_ms * 1e3:.2f} GB/s), device decode {dec_ms:.3f} ms "
+        f"({gb / dec_ms * 1e3:.2f} GB/s)")
+
+
 def time_parts(v_host, buf):
-    """Device encode/decode by CUDA events; host parts by host clock."""
+    """Device encode/decode by CUDA events, with the GPK kernels and with
+    the matmul form; host parts by host clock."""
     import torch
     from mgard_tpu_torch.api import compressor_for
     from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import stencil_kernels as sk
 
     header, sections = fmt.read_container(buf)
     comp = compressor_for(header)
     v = torch.from_numpy(v_host).cuda()
-    enc_ms = cuda_ms(lambda: comp.encode_device(v, TOL), 3)
     outs = comp.encode_device(v, TOL)
     t0 = time.perf_counter()
     secs = comp.sections_from_outputs(*outs)
@@ -293,30 +446,40 @@ def time_parts(v_host, buf):
     exps, words = comp.stream_tensors(header2, sections2)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    dec_ms = cuda_ms(lambda: comp.decode_device(exps, words, TOL), 3)
     out = comp.decode_device(exps, words, TOL)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     out.cpu()
     t5 = time.perf_counter()
-    gb = v_host.nbytes / 1e9
-    log(f"device encode {enc_ms:.3f} ms ({gb / enc_ms * 1e3:.2f} GB/s), "
-        f"device decode {dec_ms:.3f} ms ({gb / dec_ms * 1e3:.2f} GB/s)")
+    del out
+    # in turns, on / off / off / on, to see the spread within this card;
+    # off is the gate refusing every level, so the matmul form runs
+    gate = sk.gpk_supported
+    try:
+        for on in (True, False, False, True):
+            sk.gpk_supported = gate if on else (lambda hier, l, A: False)
+            time_device(comp, v, exps, words,
+                        "GPK on (K5/K6)" if on else "GPK off (matmul form)")
+    finally:
+        sk.gpk_supported = gate
     log(f"host: read-back + sections {1e3 * (t1 - t0):.3f} ms, container "
         f"write {1e3 * (t2 - t1):.3f} ms, container read + H2D "
         f"{1e3 * (t3 - t2):.3f} ms, decoded D2H {1e3 * (t5 - t4):.3f} ms")
 
 
-def small_reference_check():
-    """65^3: the card's containers decode on the CPU path within the
-    tolerance and the other way round, and the card's pyramid agrees
-    with the CPU's."""
+def reference_check(shape, seed, tol=1e-3):
+    """The card against the CPU path at a small shape: the card's pyramid
+    agrees with the CPU's, and the containers made on each decode on both
+    within the tolerance.  Where the GPK gate admits the finest level,
+    the card's compress goes through K5 and each decode on the card
+    through K6 (the CPU path takes the matmul form); elsewhere neither
+    launches."""
     import torch
     import mgard_tpu_torch as mt
-    from mgard_tpu_torch.ops import transform
+    from mgard_tpu_torch.ops import _build
+    from mgard_tpu_torch.ops import stencil_kernels as sk, transform
 
-    shape, tol = (65, 65, 65), 1e-3
-    v = smooth_field_host(shape, seed=1)
+    v = smooth_field_host(shape, seed=seed)
     cfg = mt.Config(adapt_lossless=False)
     hier = mt.Hierarchy(shape)
     pg = transform.decompose(hier, torch.from_numpy(v).cuda())
@@ -325,12 +488,19 @@ def small_reference_check():
         / float(np.abs(v).max())
     if not rel <= 1e-5:
         raise AssertionError(f"card and CPU pyramids differ by {rel}")
+    _build.reset_launches()
     b_gpu = mt.compress(v, tol, config=cfg)
     b_cpu = mt.compress(v, tol, config=cfg, device="cpu")
     errs = [float(np.abs(mt.decompress(b, device=d) - v).max())
             for b in (b_gpu, b_cpu) for d in ("cuda", "cpu")]
-    log(f"65^3 reference check: pyramid rel diff {rel!r}, cross-decode "
-        f"errors {errs}, same bytes {b_gpu == b_cpu}")
+    counts = _build.launch_counts()
+    k56 = (counts["gpk_detail"], counts["gpk_prolong_add"])
+    log(f"{shape} reference check: pyramid rel diff {rel!r}, cross-decode "
+        f"errors {errs} (card->card, card->CPU, CPU->card, CPU->CPU), "
+        f"same bytes {b_gpu == b_cpu}, K5/K6 launches {k56}")
+    want = (1, 2) if sk.gpk_structure_ok(hier, hier.L) else (0, 0)
+    if k56 != want:
+        raise AssertionError(f"K5/K6 launched {k56} times, expected {want}")
     if not max(errs) <= tol:
         raise AssertionError(f"cross-decode error {max(errs)} > {tol}")
 
@@ -363,9 +533,12 @@ def main() -> int:
 
     with Phase("kernels"):
         v = torch.from_numpy(v_host).cuda()
-        kernels = check_kernels(hier, v)
+        kernels = check_kernels(hier, v) + check_stencil(hier, v)
         del v
         torch.cuda.empty_cache()
+
+    with Phase("nonuniform"):
+        check_stencil_nonuniform()
 
     with Phase("main path"):
         buf, counts = main_path(v_host)
@@ -374,7 +547,8 @@ def main() -> int:
         time_parts(v_host, buf)
 
     with Phase("reference"):
-        small_reference_check()
+        reference_check((65, 65, 65), seed=1)
+        reference_check((32, 256, 256), seed=2)
 
     for k in kernels:
         k["launches"] = counts[k["name"]]

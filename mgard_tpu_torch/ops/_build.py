@@ -7,7 +7,8 @@ shared library, loaded with :mod:`ctypes`.  No PyTorch headers, no
 
 The library goes into ``mgard_tpu_torch/_build/`` (git-ignored) at first
 use and is rebuilt whenever a source is newer than it.  A failed build
-raises.
+raises.  Each kernel module registers its wrappers here with
+:func:`counted`, so that one place resets and reads every launch count.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _lib = None
 _lock = threading.Lock()
 build_seconds = None   # wall time of this process's build, None if reused
+_wrappers = []         # every kernel wrapper, in the order registered
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,9 @@ _SIGNATURES = {
     "mgard_bp_quant_max": (_P, _LL, _I, _I, _F, _P, _P, _P),
     "mgard_bp_quant_condense": (_P, _LL, _I, _I, _F, _P, _P, _P, _P),
     "mgard_bp_decode_condense_f32": (_P, _I, _I, _P, _P, _F, _P, _LL, _P),
+    "mgard_gpk_detail": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mgard_gpk_prolong_add": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _P),
 }
 
 
@@ -116,3 +121,22 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+def counted(fn):
+    """Register a kernel wrapper.  It adds one to ``fn.launches`` where it
+    launches its kernel, and nowhere else."""
+    fn.launches = 0
+    _wrappers.append(fn)
+    return fn
+
+
+def reset_launches() -> None:
+    """Set the launch count of every registered wrapper to 0."""
+    for fn in _wrappers:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """The launch count of every registered wrapper, by its name."""
+    return {fn.__name__: fn.launches for fn in _wrappers}

@@ -111,6 +111,7 @@ def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
     return _to_i32(zmax), status
 
 
+@_build.counted
 def bp_quant_max(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
     """(zmax int32 (nchunks,) uint32 bit patterns, status int32
     (nchunks,)) of one float32 segment scaled by ``inv_q``."""
@@ -127,8 +128,6 @@ def bp_quant_max(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
     return zmax, status
 
 
-bp_quant_max.launches = 0
-
 
 # ---------------------------------------------------------------------------
 # K3: quantize + zigzag + transpose + condense into the shared stream
@@ -143,6 +142,7 @@ def bp_quant_condense_plain(seg, nchunks: int, C: int, inv_q: float,
     words.view(-1, C)[rows[valid]] = _to_i32(planes[valid])
 
 
+@_build.counted
 def bp_quant_condense(seg: torch.Tensor, nchunks: int, C: int,
                       inv_q: float, offsets: torch.Tensor, e: torch.Tensor,
                       words: torch.Tensor) -> None:
@@ -167,8 +167,6 @@ def bp_quant_condense(seg: torch.Tensor, nchunks: int, C: int,
     bp_quant_condense.launches += 1
 
 
-bp_quant_condense.launches = 0
-
 
 # ---------------------------------------------------------------------------
 # K4: read e_c rows per chunk, transpose back, unzigzag, dequantize
@@ -188,6 +186,7 @@ def bp_decode_condense_f32_plain(words, C: int, offsets, e, quantum: float,
     return out.reshape(-1)[:n]
 
 
+@_build.counted
 def bp_decode_condense_f32(words: torch.Tensor, C: int,
                            offsets: torch.Tensor, e: torch.Tensor,
                            quantum: float, n: int) -> torch.Tensor:
@@ -211,22 +210,3 @@ def bp_decode_condense_f32(words: torch.Tensor, C: int,
                   out.data_ptr(), n)
     bp_decode_condense_f32.launches += 1
     return out
-
-
-bp_decode_condense_f32.launches = 0
-
-
-def reset_launches() -> None:
-    """Set the launch counters of K1-K4 to 0."""
-    from .extract_kernels import extract_coarse_3d
-    for fn in (extract_coarse_3d, bp_quant_max, bp_quant_condense,
-               bp_decode_condense_f32):
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    from .extract_kernels import extract_coarse_3d
-    return {fn.__name__: fn.launches
-            for fn in (extract_coarse_3d, bp_quant_max, bp_quant_condense,
-                       bp_decode_condense_f32)}
-

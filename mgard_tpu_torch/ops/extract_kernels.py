@@ -62,6 +62,7 @@ def extract_coarse_3d_plain(A: torch.Tensor, idx) -> torch.Tensor:
     return A
 
 
+@_build.counted
 def extract_coarse_3d(hier: Hierarchy, A: torch.Tensor, l: int
                       ) -> torch.Tensor:
     """Coarse nodes of the dense level-``l`` array ``A`` (n0, n1, n2)."""
@@ -82,5 +83,3 @@ def extract_coarse_3d(hier: Hierarchy, A: torch.Tensor, l: int
     extract_coarse_3d.launches += 1
     return out
 
-
-extract_coarse_3d.launches = 0

@@ -1,0 +1,234 @@
+"""K5/K6: the GPK stencil pair, multilinear interpolation of a level's
+parent grid as per-dim +-1 lerps (the counterpart of
+``mgard_tpu/ops/stencil_kernels.py``, whose math spec is
+``mgard_tpu/ops/stencil.py``).
+
+When every dim of a level is stride-2 or front-interleaved, the parents
+of a new node sit at positions +-1, so the interpolation is a
+composition of per-dim 3-point lerps:
+
+    B_d(V)[x] = V[x]                                   x_d parental
+              = (1-r)*V[x - e_d] + r*V[x + e_d]        x_d new
+
+    K5  gpk_detail:       detail = A - (B1 o B0 o B2)(A)
+    K6  gpk_prolong_add:  A = (B1 o B0 o B2)(embed C) + detail
+
+Each B_d only reads positions that are parental in the dims not yet
+processed, which already carry the right partial interpolation; the
+first and the last position of a dim are always parental, so no lerp
+reads across an edge.  The composition order (dim 2, then dim 0, then dim 1) is the JAX
+kernels', on both sides, so that encode and decode run the same lerps.
+The kernels (``csrc/stencil.cu``) evaluate the lerp tree per output
+element; K6 reads the coarse array ``C`` at its coarse indices, so the
+embedded fine array is never formed.  Each wrapper takes its plain
+PyTorch version for a CPU tensor, launches its kernel for a CUDA tensor
+and raises for anything else.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..hierarchy import Hierarchy
+from . import _build
+
+__all__ = ["gpk_structure_ok", "gpk_supported", "gpk_detail",
+           "gpk_prolong_add", "gpk_detail_plain", "gpk_prolong_add_plain"]
+
+# The JAX gate's Mosaic tiling (rows of 8 along dim 0, 128 along dim 1
+# and dim 2).  The CUDA kernels need none of it; the port keeps it so
+# that it engages GPK on exactly the levels the TPU does.
+_B0 = 8
+_B1 = 128
+
+
+def _dim_ok_encode(lev) -> bool:
+    if lev.coarse_pos is None or lev.new_pos is None or not len(lev.new_pos):
+        return False
+    return lev.coarse_is_stride2 or lev.front_nc is not None
+
+
+def _dim_ok_decode(lev) -> bool:
+    # even n, front-interleaved, single trailing coarse node: 2^k sizes
+    return lev.front_nc is not None and lev.n == 2 * lev.front_nc
+
+
+def gpk_structure_ok(hier: Hierarchy, l: int) -> bool:
+    """``mgard_tpu``'s ``gpk_supported(hier, l, decode=True)`` without its
+    backend test: 3 non-flat dims, block-tileable sizes, parents at +-1
+    in every dim and the 2^k decode structure in dims 0 and 1."""
+    if hier.ndim != 3 or any(s == 1 for s in hier.shape):
+        return False
+    n0, n1, n2 = (hier.dims[d][l].n for d in range(3))
+    if n0 % _B0 or n1 % _B1 or n2 % 128:
+        return False
+    for d in range(3):
+        lev = hier.dims[d][l]
+        if not _dim_ok_encode(lev):
+            return False
+        if d < 2 and not _dim_ok_decode(lev):
+            return False
+    return True
+
+
+def gpk_supported(hier: Hierarchy, l: int, A: torch.Tensor) -> bool:
+    """The gate of the transform: a float32 tensor on CUDA at a level of
+    the right structure.  Off the card the transform takes the matmul
+    form, as the JAX package does off the TPU."""
+    return A.is_cuda and A.dtype == torch.float32 \
+        and gpk_structure_ok(hier, l)
+
+
+# ---------------------------------------------------------------------------
+# Host tables
+# ---------------------------------------------------------------------------
+
+def _mw_arrays(hier: Hierarchy, l: int):
+    """Per-dim host tables of a 3-D level, cached on the hierarchy:
+    float32 mask (1 at new positions) and weight (the interpolation ratio
+    there), and the int32 coarse index of each parent position (-1 at new
+    positions).  Checks that the lerps read inside the grid: the first
+    and last positions are parents, and so are both neighbours of every
+    new position."""
+    cache = hier.__dict__.setdefault("_torch_gpk_mw", {})
+    if l not in cache:
+        if hier.ndim != 3:
+            raise ValueError("the GPK kernels take 3-D hierarchies")
+        out = []
+        for d in range(3):
+            lev = hier.dims[d][l]
+            if not _dim_ok_encode(lev):
+                raise ValueError(f"dim {d} of level {l} is not refined with "
+                                 "parents at +-1")
+            m = np.zeros(lev.n, dtype=np.float32)
+            w = np.zeros(lev.n, dtype=np.float32)
+            m[lev.new_pos] = 1.0
+            w[lev.new_pos] = lev.new_ratio.astype(np.float32)
+            cidx = np.full(lev.n, -1, dtype=np.int32)
+            cidx[lev.coarse_pos] = np.arange(len(lev.coarse_pos))
+            new = np.asarray(lev.new_pos)
+            if cidx[0] < 0 or cidx[-1] < 0 or (cidx[new - 1] < 0).any() \
+                    or (cidx[new + 1] < 0).any():
+                raise AssertionError(f"dim {d} of level {l}: a lerp would "
+                                     "read a non-parent position")
+            out.append((m, w, cidx))
+        cache[l] = out
+    return cache[l]
+
+
+def _device_tables(hier: Hierarchy, l: int, device):
+    """The kernels' arguments per dim, (weight float32, coarse index
+    int32), on ``device`` (cached)."""
+    cache = hier.__dict__.setdefault("_torch_gpk_dev", {})
+    key = (l, str(device))
+    if key not in cache:
+        cache[key] = [(torch.as_tensor(w, device=device),
+                       torch.as_tensor(c, device=device))
+                      for _m, w, c in _mw_arrays(hier, l)]
+    return cache[key]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _interp_dim(V: torch.Tensor, m: np.ndarray, w: np.ndarray,
+                axis: int) -> torch.Tensor:
+    """Apply B_d along ``axis``: lerp new positions from their +-1
+    parental neighbours, keep parental positions bit-exactly.  The lerp
+    is separate float32 multiplies, a subtract and an add (never
+    ``torch.lerp`` or ``addcmul``, which round differently), the same
+    expression as the kernels' ``_rn`` intrinsics."""
+    shp = [1] * V.dim()
+    shp[axis] = V.shape[axis]
+    mt = torch.as_tensor(m, dtype=V.dtype, device=V.device).reshape(shp)
+    wt = torch.as_tensor(w, dtype=V.dtype, device=V.device).reshape(shp)
+    left = torch.roll(V, 1, dims=axis)
+    right = torch.roll(V, -1, dims=axis)
+    lerp = (1 - wt) * left + wt * right
+    return torch.where(mt != 0, lerp, V)
+
+
+def _b1b0b2(hier: Hierarchy, V: torch.Tensor, l: int) -> torch.Tensor:
+    mw = _mw_arrays(hier, l)
+    for d in (2, 0, 1):
+        V = _interp_dim(V, mw[d][0], mw[d][1], d)
+    return V
+
+
+def gpk_detail_plain(hier: Hierarchy, A: torch.Tensor, l: int
+                     ) -> torch.Tensor:
+    """Plain PyTorch K5: ``A - B1(B0(B2(A)))``."""
+    return A - _b1b0b2(hier, A, l)
+
+
+def gpk_prolong_add_plain(hier: Hierarchy, C: torch.Tensor,
+                          detail: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain PyTorch K6: ``C`` placed at the all-parent positions of a
+    zero array, ``B1(B0(B2(.)))``, plus ``detail``."""
+    pos = [torch.as_tensor(np.asarray(hier.dims[d][l].coarse_pos),
+                           device=C.device) for d in range(3)]
+    V = torch.zeros(detail.shape, dtype=C.dtype, device=C.device)
+    V[pos[0][:, None, None], pos[1][None, :, None], pos[2][None, None, :]] \
+        = C
+    return _b1b0b2(hier, V, l) + detail
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(name: str, **tensors) -> None:
+    for arg, (t, shape) in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected the "
+                             "CPU or a CUDA device")
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous float32 "
+                             f"tensor of shape {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _table_ptrs(hier: Hierarchy, l: int, device):
+    return [t.data_ptr() for wc in _device_tables(hier, l, device)
+            for t in wc]
+
+
+@_build.counted
+def gpk_detail(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
+    """detail = A - multilinear interpolation of the parents of the dense
+    level-``l`` array ``A``: exact zeros at all-parent nodes."""
+    if A.device.type == "cpu":
+        return gpk_detail_plain(hier, A, l)
+    shape = hier.shapes[l]
+    _check_cuda("gpk_detail", A=(A, shape))
+    out = torch.empty_like(A)
+    _build.launch("mgard_gpk_detail", A.data_ptr(), out.data_ptr(),
+                  *_table_ptrs(hier, l, A.device), *shape)
+    gpk_detail.launches += 1
+    return out
+
+
+
+@_build.counted
+def gpk_prolong_add(hier: Hierarchy, C: torch.Tensor, detail: torch.Tensor,
+                    l: int) -> torch.Tensor:
+    """A = multilinear interpolation of the coarse array ``C`` (the parent
+    level's grid) onto level ``l``, plus ``detail``."""
+    if C.device.type == "cpu" and detail.device.type == "cpu":
+        return gpk_prolong_add_plain(hier, C, detail, l)
+    shape, cshape = hier.shapes[l], hier.shapes[l - 1]
+    _check_cuda("gpk_prolong_add", C=(C, cshape),
+                detail=(detail, shape))
+    if C.device != detail.device:
+        raise ValueError("gpk_prolong_add: C and detail are on "
+                         f"{C.device} and {detail.device}")
+    out = torch.empty_like(detail)
+    _build.launch("mgard_gpk_prolong_add", C.data_ptr(), detail.data_ptr(),
+                  out.data_ptr(), *_table_ptrs(hier, l, C.device), *shape,
+                  cshape[1], cshape[2])
+    gpk_prolong_add.launches += 1
+    return out
+

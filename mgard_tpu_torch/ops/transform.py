@@ -5,16 +5,19 @@ Per level ``l`` (finest to coarsest), with ``A`` the dense level-``l``
 values:
 
     C       = A restricted to parent nodes         (K1, or gathers)
-    P       = multilinear interpolation of C        (one matmul per dim)
+    P       = multilinear interpolation of C        (K5, or one matmul
+                                                     per dim)
     detail  = A - P          # zero at parent nodes, coefficients elsewhere
     A_{l-1} = C + K(detail)  # K = M_{l-1}^{-1} R_l M_l, one matmul per dim
 
-``recompose`` runs the exact inverse.  The per-dim operators are small
-dense float64 matrices built on the host from the hierarchy's tables,
-cast to float32 and applied as tensordots in full float32 (no TF32; the
-package turns it off at import).  The JAX package's TPU-only stencil
-kernels for P (``MGARD_TPU_GPK``) are not on this path: off the TPU it
-takes the matmul form too, which is what the port computes.
+``recompose`` runs the exact inverse, with K6 or the matmuls for
+``P + detail``.  The per-dim operators are small dense float64 matrices
+built on the host from the hierarchy's tables, cast to float32 and
+applied as tensordots in full float32 (no TF32; the package turns it off
+at import).  As in the JAX package, the interpolation goes through the
+GPK stencil kernels (``ops/stencil_kernels.py``) at every level their
+gate admits; the gate admits only CUDA tensors, so off the card the
+transform takes the matmul form, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ..hierarchy import DimLevel, Hierarchy
 from . import extract_kernels as xk
+from . import stencil_kernels as sk
 
 __all__ = ["decompose", "recompose", "recompose_to_level"]
 
@@ -207,7 +211,10 @@ def decompose(hier: Hierarchy, v: torch.Tensor) -> List[torch.Tensor]:
     for l in range(hier.L, 0, -1):
         _check_matmul(hier, l)
         C = _extract_old_all(hier, A, l)
-        detail = A - _prolong_all(hier, C, l)
+        if sk.gpk_supported(hier, l, A):
+            detail = sk.gpk_detail(hier, A, l)
+        else:
+            detail = A - _prolong_all(hier, C, l)
         pyramid[l] = detail
         A = C + _correction(hier, detail, l)
     pyramid[0] = A
@@ -229,5 +236,8 @@ def recompose_to_level(hier: Hierarchy, pyramid: Sequence[torch.Tensor],
         _check_matmul(hier, l)
         detail = pyramid[l]
         C = A - _correction(hier, detail, l)
-        A = _prolong_all(hier, C, l) + detail
+        if sk.gpk_supported(hier, l, detail):
+            A = sk.gpk_prolong_add(hier, C, detail, l)
+        else:
+            A = _prolong_all(hier, C, l) + detail
     return A

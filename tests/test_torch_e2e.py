@@ -133,6 +133,7 @@ def test_no_device_raises_without_a_card():
 def test_port_imports_no_jax():
     code = ("import sys, mgard_tpu_torch, mgard_tpu_torch.api, "
             "mgard_tpu_torch.ops.transform, mgard_tpu_torch.ops.bitplane, "
+            "mgard_tpu_torch.ops.stencil_kernels, "
             "mgard_tpu_torch.io.carry, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mgard_tpu' "
