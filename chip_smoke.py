@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (one ``nvcc`` call), holds each kernel
-against its plain PyTorch version at the shapes of the main path,
-drives the main path once through the public API (a 512^3 float32 field
+against its plain PyTorch version at the shapes of the path that runs
+it, drives each path once through the public API (a 512^3 float32 field
 compressed at an absolute L-infinity tolerance of 1e-3 and decompressed
-again), checks the result, and prints one JSON line per kernel summary
-and a last line ``{"ok": true, "device": {...}}``.  Any failure raises
-and the script exits non-zero; without a CUDA device it exits non-zero
-before doing anything.
+again: segmented, then on the flat PYRAMID stream; the default per-group
+codec at 128^3; the 512^3 field as float64), checks every result, and
+prints the kernels' JSON line, the card's line and a last line
+``{"ok": true, "device": {...}}``.  Any failure raises and the script
+exits non-zero; without a CUDA device it exits non-zero before doing
+anything.
 
 Phases (each prints its wall time):
   1. setup     - card name and power limit, versions, the kernel build;
@@ -19,21 +21,31 @@ Phases (each prints its wall time):
                  field at the finest level, K6 on K1's coarse array and
                  K5's detail), bit-identical, timed with CUDA events, and
                  the matmul form that K5/K6 replace timed beside them;
+                 K12 and K11 on the flat PYRAMID stream of the field
+                 (with an int32 minimum planted in it), and K4 and K11
+                 on a stream with no words (every exponent 0);
   3. nonuniform- K5 and K6 bit-identical to their plain versions on a
                  grid with random coordinates: with the weights of 0.5 of
                  a uniform grid every product is exact, so only such a
                  grid shows a multiply-add that the compiler contracted;
   4. main path - mgard_tpu_torch.compress / decompress at 512^3 with the
                  launch counters set to 0 just before and read just
-                 after; K5 and K6 launch once each;
+                 after; K1-K6 launch, K5 and K6 once each, K11/K12 not;
   5. timing    - device encode/decode by CUDA events, with the GPK
                  kernels on and then off (the matmul form), and the host
                  parts by host clock;
-  6. reference - card-versus-CPU cross-checks at 65^3 (matmul form
-                 only) and (32, 256, 256) (K5/K6 on the card): the
-                 pyramids agree and each container decodes on both
-                 within the tolerance;
-  7. summary   - the kernels line, the card line, the ok line.
+  6. flat      - the same field with Config(layout=PYRAMID): the flat
+                 chunked stream, K12 and K11 once each, K2-K4 not at all;
+  7. per-group - the default Config at 128^3 (under 2^22 values, so the
+                 per-group codec; no codec kernel launches);
+  8. float64   - the 512^3 field as float64, default Config: the wide
+                 codec, 2048 groups a chunk, no kernel launches (every
+                 kernel is float32 only, as in the JAX package);
+  9. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+                 only; each of the three flat paths too) and
+                 (32, 256, 256) (K5/K6 on the card): the pyramids agree
+                 and each container decodes on both within the tolerance;
+ 10. summary   - the kernels line, the card line, the ok line.
 """
 
 from __future__ import annotations
@@ -64,6 +76,11 @@ OPS_LERP = 4
 # transform (the port before K5/K6, on an H100); the GPK transform must
 # stay within 1% of it.
 RATIO_MATMUL_ONLY = 2.5212
+# The kernels of the segmented main path, and the flat stream's pair.
+SEGMENTED_KERNELS = ("extract_coarse_3d", "bp_quant_max", "bp_quant_condense",
+                     "bp_decode_condense_f32", "gpk_detail",
+                     "gpk_prolong_add")
+FLAT_KERNELS = ("bp_encode_condense", "bp_decode_condense")
 
 
 def log(msg: str) -> None:
@@ -266,6 +283,80 @@ def check_kernels(hier, v):
     return results
 
 
+def check_flat_kernels(hier, v):
+    """K12 and K11 against their plain versions on the flat PYRAMID
+    stream of the main path's field (the stream that Config(layout=
+    PYRAMID) encodes), with an int32 minimum planted in it (its zigzag
+    word is 0xFFFFFFFF); then K4 and K11 on a stream with no words."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.config import Layout
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
+
+    results = []
+    comp = mt.get_compressor(SHAPE, np.float32, device="cuda",
+                             config=mt.Config(layout=Layout.PYRAMID))
+    q, status = comp._quantized_flat(v, TOL)
+    if int(status):
+        raise AssertionError("main-path data gave a nonzero flat status")
+    q[q.numel() // 3] = -2 ** 31
+    n = q.numel()
+    C = bitplane.CHUNK_GROUPS
+    nc = bitplane.num_chunks_tiled(n, C)
+    zc = bitplane._zigzag(bk.chunked(q, nc, C))
+    e = bitplane._chunk_exponents(zc)
+    offsets = bitplane._offsets(e)
+    rows = int(e.sum())
+    words = torch.zeros(nc * 33 * C, dtype=torch.int32, device=v.device)
+    words_plain = torch.zeros_like(words)
+    bk.bp_encode_condense(zc, offsets, e, words)
+    bk.bp_encode_condense_plain(zc, offsets, e, words_plain)
+    err = max_abs_diff(words, words_plain)
+    record(results, "bp_encode_condense", "mgard_tpu_torch/csrc/bp_codec.cu",
+           "mgard_tpu/ops/pallas_kernels.py:312", err,
+           cuda_ms(lambda: bk.bp_encode_condense(zc, offsets, e, words), 5),
+           cuda_ms(lambda: bk.bp_encode_condense_plain(zc, offsets, e,
+                                                       words_plain), 2),
+           4 * zc.numel() + 4 * rows * C + 8 * nc,
+           OPS_BUTTERFLY * zc.numel())
+    del words_plain, zc
+    stream = words[:rows * C]
+    got = bk.bp_decode_condense(stream, C, offsets, e, n)
+    err = max_abs_diff(got, bk.bp_decode_condense_plain(stream, C, offsets,
+                                                        e, n))
+    if not torch.equal(got, q):
+        raise AssertionError("K11 does not give K12's input back")
+    record(results, "bp_decode_condense", "mgard_tpu_torch/csrc/bp_codec.cu",
+           "mgard_tpu/ops/pallas_kernels.py:710", err,
+           cuda_ms(lambda: bk.bp_decode_condense(stream, C, offsets, e, n),
+                   5),
+           cuda_ms(lambda: bk.bp_decode_condense_plain(stream, C, offsets,
+                                                       e, n), 2),
+           4 * rows * C + 4 * n + 8 * nc, (OPS_BUTTERFLY + 2) * n)
+    log(f"flat stream: {n} values, {nc} chunks, {rows} stream rows of {C} "
+        f"words, one value set to -2^31")
+    del got, stream, words
+
+    # no stream words at all (an all-zero field): K4 and K11 read no row
+    zero_e = torch.zeros(nc, dtype=torch.int32, device=v.device)
+    for words in (torch.zeros(0, dtype=torch.int32, device=v.device),
+                  torch.zeros(C, dtype=torch.int32, device=v.device)):
+        outs = {"K11": (bk.bp_decode_condense(words, C, zero_e, zero_e, n),
+                        bk.bp_decode_condense_plain(words, C, zero_e,
+                                                    zero_e, n)),
+                "K4": (bk.bp_decode_condense_f32(words, C, zero_e, zero_e,
+                                                 0.5, n),
+                       bk.bp_decode_condense_f32_plain(words, C, zero_e,
+                                                       zero_e, 0.5, n))}
+        for name, (got, plain) in outs.items():
+            if got.any() or plain.any() or max_abs_diff(got, plain):
+                raise AssertionError(f"{name} on an empty stream of "
+                                     f"{words.numel()} words is not zero")
+    log(f"empty stream: K4 and K11 give {n} zeros from 0 words and from a "
+        f"one-row buffer, as their plain versions do")
+    return results
+
+
 def stencil_counts(hier, l):
     """Bytes and operations that K5 and K6 must move and do at level
     ``l``: each input read once, each output written once; the lerps of
@@ -390,10 +481,11 @@ def main_path(v_host):
     log(f"main path: compress {1e3 * (t1 - t0):.3f} ms, decompress "
         f"{1e3 * (t2 - t1):.3f} ms (host clock, H2D and D2H included); "
         f"launches {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
+    missing = [k for k in SEGMENTED_KERNELS if counts[k] == 0]
+    extra = [k for k in FLAT_KERNELS if counts[k]]
+    if missing or extra:
         raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+                             f"{missing}; launched off it: {extra}")
     if counts["gpk_detail"] != 1 or counts["gpk_prolong_add"] != 1:
         raise AssertionError("K5/K6 must launch once each per round trip "
                              f"at {SHAPE}: {counts}")
@@ -467,6 +559,129 @@ def time_parts(v_host, buf):
         f"{1e3 * (t3 - t2):.3f} ms, decoded D2H {1e3 * (t5 - t4):.3f} ms")
 
 
+def drive(label, v_host, config, tol=TOL):
+    """One compress / decompress through the API with the launch counters
+    set to 0 just before and read just after; the error bound checked,
+    and the device encode and decode timed by CUDA events."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.api import compressor_for
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    buf = mt.compress(v_host, tol, config=config)
+    t1 = time.perf_counter()
+    out = mt.decompress(buf)
+    t2 = time.perf_counter()
+    counts = _build.launch_counts()
+    if out.shape != v_host.shape or out.dtype != v_host.dtype:
+        raise AssertionError(f"{label}: output {out.shape} {out.dtype}")
+    if not np.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite output")
+    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    del out
+    header, sections = fmt.read_container(buf)
+    comp = compressor_for(header)
+    v = torch.from_numpy(v_host).cuda()
+    enc_ms = cuda_ms(lambda: comp.encode_device(v, tol), 3)
+    exps, words = comp.stream_tensors(header, sections)
+    dec_ms = cuda_ms(lambda: comp.decode_device(
+        exps, words, tol, mt.Lossless(header.lossless)), 3)
+    del v, exps, words
+    torch.cuda.empty_cache()
+    gb = v_host.nbytes / 1e9
+    log(f"{label}: {v_host.shape} {v_host.dtype}, lossless "
+        f"{mt.Lossless(header.lossless).name}, chunk groups "
+        f"{comp.chunk_groups}, {len(buf)} bytes, ratio "
+        f"{v_host.nbytes / len(buf)!r}, max|v - out| = {err!r} (tolerance "
+        f"{tol}); API compress {1e3 * (t1 - t0):.3f} ms, decompress "
+        f"{1e3 * (t2 - t1):.3f} ms (host clock); device encode "
+        f"{enc_ms:.3f} ms ({gb / enc_ms * 1e3:.2f} GB/s), decode "
+        f"{dec_ms:.3f} ms ({gb / dec_ms * 1e3:.2f} GB/s) (CUDA events); "
+        f"launches {counts}")
+    if not err <= tol:
+        raise AssertionError(f"{label}: error {err} exceeds {tol}")
+    return header, comp, counts
+
+
+def flat_path(v_host, main_counts):
+    """The 512^3 field on the flat PYRAMID stream: K12 and K11 once each,
+    the transform's kernels as on the segmented path, K2-K4 never."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.config import Layout
+
+    header, _, counts = drive("flat path", v_host,
+                              mt.Config(layout=Layout.PYRAMID))
+    want = dict(main_counts, bp_quant_max=0, bp_quant_condense=0,
+                bp_decode_condense_f32=0, bp_encode_condense=1,
+                bp_decode_condense=1)
+    if counts != want or header.lossless != int(mt.Lossless.BITPLANE):
+        raise AssertionError(f"flat path launches {counts}, expected "
+                             f"{want}; lossless {header.lossless}")
+    return counts
+
+
+def pergroup_path(shape=(128, 128, 128), seed=SEED):
+    """The default Config under 2^22 values: the per-group codec, plain
+    PyTorch on the card as the JAX package's is XLA."""
+    import mgard_tpu_torch as mt
+
+    header, _, counts = drive("per-group path",
+                              smooth_field_host(shape, seed), mt.Config())
+    codec = [k for k in SEGMENTED_KERNELS[1:4] + FLAT_KERNELS if counts[k]]
+    if header.lossless != int(mt.Lossless.BITPLANE_GROUP) or codec:
+        raise AssertionError(f"per-group path: lossless {header.lossless}, "
+                             f"codec kernels launched {codec}")
+
+
+def float64_path(v_host):
+    """The 512^3 field as float64, default Config: the wide chunked codec
+    (2048 groups a chunk), the transform in float64 matmuls, no kernel."""
+    import mgard_tpu_torch as mt
+
+    header, comp, counts = drive("float64 path", v_host.astype(np.float64),
+                                 mt.Config())
+    launched = {k: n for k, n in counts.items() if n}
+    if header.lossless != int(mt.Lossless.BITPLANE) \
+            or (header.chunk_groups or 2048) != 2048 \
+            or comp.chunk_groups != 2048 or launched:
+        raise AssertionError(f"float64 path: lossless {header.lossless}, "
+                             f"chunk groups {header.chunk_groups}, "
+                             f"launches {launched}")
+
+
+def flat_reference_check(shape=(65, 65, 65), seed=3, tol=1e-3):
+    """Card against CPU on each flat path at a small shape: the
+    containers made on each decode on both within the tolerance."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.config import Layout
+    from mgard_tpu_torch.ops import _build
+
+    v32 = smooth_field_host(shape, seed=seed)
+    cases = (("PYRAMID", v32, mt.Config(layout=Layout.PYRAMID,
+                                        adapt_lossless=False)),
+             ("per-group", v32, mt.Config()),
+             ("float64", v32.astype(np.float64), mt.Config()))
+    for label, v, cfg in cases:
+        _build.reset_launches()
+        b_gpu = mt.compress(v, tol, config=cfg)
+        b_cpu = mt.compress(v, tol, config=cfg, device="cpu")
+        errs = [float(np.abs(mt.decompress(b, device=d) - v).max())
+                for b in (b_gpu, b_cpu) for d in ("cuda", "cpu")]
+        counts = _build.launch_counts()
+        flat = (counts["bp_encode_condense"], counts["bp_decode_condense"])
+        log(f"{shape} {label} reference check: cross-decode errors {errs} "
+            f"(card->card, card->CPU, CPU->card, CPU->CPU), same bytes "
+            f"{b_gpu == b_cpu}, K12/K11 launches {flat}")
+        if flat != ((1, 2) if label == "PYRAMID" else (0, 0)):
+            raise AssertionError(f"{label}: K12/K11 launched {flat}")
+        if not max(errs) <= tol:
+            raise AssertionError(f"{label}: cross-decode error {max(errs)} "
+                                 f"> {tol}")
+
+
 def reference_check(shape, seed, tol=1e-3):
     """The card against the CPU path at a small shape: the card's pyramid
     agrees with the CPU's, and the containers made on each decode on both
@@ -533,7 +748,8 @@ def main() -> int:
 
     with Phase("kernels"):
         v = torch.from_numpy(v_host).cuda()
-        kernels = check_kernels(hier, v) + check_stencil(hier, v)
+        kernels = check_kernels(hier, v) + check_stencil(hier, v) \
+            + check_flat_kernels(hier, v)
         del v
         torch.cuda.empty_cache()
 
@@ -545,13 +761,26 @@ def main() -> int:
 
     with Phase("timing"):
         time_parts(v_host, buf)
+    del buf
+
+    with Phase("flat"):
+        flat_counts = flat_path(v_host, counts)
+
+    with Phase("per-group"):
+        pergroup_path()
+
+    with Phase("float64"):
+        float64_path(v_host)
 
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
         reference_check((32, 256, 256), seed=2)
+        flat_reference_check()
 
+    # launches: each kernel's count on the path that runs it
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = (flat_counts if k["name"] in FLAT_KERNELS
+                         else counts)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -1,8 +1,8 @@
 """mgard_tpu_torch: the PyTorch/CUDA port of mgard_tpu.
 
-An error-bounded lossy compressor for N-D float32 arrays (MGARD's
-multilevel decomposition, L-infinity error control, a bitplane codec),
-running on an NVIDIA H100 with hand-written CUDA kernels for its hot
+An error-bounded lossy compressor for N-D float32 and float64 arrays
+(MGARD's multilevel decomposition, L-infinity error control, bitplane
+codecs), running on an NVIDIA H100 with hand-written CUDA kernels for its hot
 loops.  It writes and reads the same containers as the JAX package.
 
 Importing the package loads no CUDA code: the kernels are built with
@@ -18,11 +18,11 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from .api import compress, decompress  # noqa: E402
-from .config import Config, ErrorMode, Lossless  # noqa: E402
+from .config import Config, ErrorMode, Layout, Lossless  # noqa: E402
 from .hierarchy import Hierarchy  # noqa: E402
 from .models.compressor import Compressor, get_compressor  # noqa: E402
 
 __all__ = ["compress", "decompress", "Compressor", "get_compressor",
-           "Hierarchy", "Config", "ErrorMode", "Lossless"]
+           "Hierarchy", "Config", "ErrorMode", "Layout", "Lossless"]
 
 __version__ = "0.1.0"

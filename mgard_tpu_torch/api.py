@@ -20,7 +20,7 @@ from .io import format as fmt
 from .models.compressor import _not_ported, get_compressor
 
 __all__ = ["compress", "decompress", "resolve_device",
-           "estimate_memory_footprint"]
+           "estimate_memory_footprint", "adjust_shape"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,13 +66,53 @@ def plan_blocks(shape, dtype, cfg: Config, device: torch.device) -> int:
     return min(nb, int(shape[int(np.argmax(shape))]))
 
 
+def adjust_shape(shape) -> tuple:
+    """Rebalance a lopsided shape by moving the largest dim's prime
+    factors onto the smallest dims (``mgard_tpu/api.py:148``); the
+    element count and row-major order are unchanged."""
+    shape = [int(x) for x in shape]
+    max_d = int(np.argmax(shape))
+    n = shape[max_d]
+    factors = []
+    z = 2
+    while z * z <= n:
+        if n % z == 0:
+            factors.append(z)
+            n //= z
+        else:
+            z += 1
+    if n > 1:
+        factors.append(n)
+    shape[max_d] = 1
+    for f in reversed(factors):
+        shape[int(np.argmin(shape))] *= f
+    return tuple(shape)
+
+
+def _needs_blocks(shape, dtype, coordinates, cfg: Config,
+                  dev: torch.device) -> bool:
+    """Whether the JAX package would reshape the input or split it into
+    blocks (``mgard_tpu/api.py:105-133``) rather than write one
+    single-domain container."""
+    if cfg.adjust_shape and coordinates is None \
+            and adjust_shape(shape) != tuple(shape):
+        return True
+    if cfg.dd_method == "block":
+        grid = [1 if s == 1 else max(1, -(-s // cfg.block_edge))
+                for s in shape]
+        if int(np.prod(grid)) > 1:
+            return True
+    return cfg.dd_sizes is not None \
+        or plan_blocks(shape, dtype, cfg, dev) > 1
+
+
 def compress(data, tolerance: float, s: float = math.inf,
              mode: str = "abs",
              coordinates: Optional[Sequence[np.ndarray]] = None,
              config: Optional[Config] = None, device=None) -> bytes:
-    """Compress a float32 array (numpy or torch) with a guaranteed
-    L-infinity error bound ``tolerance`` (absolute, or relative to
-    max|data| with ``mode="rel"``)."""
+    """Compress a float32 or float64 array (numpy or torch) with a
+    guaranteed L-infinity error bound ``tolerance`` (absolute, or
+    relative to max|data| with ``mode="rel"``)."""
     dev = resolve_device(device)
     if isinstance(data, torch.Tensor):
         shape, dtype = tuple(data.shape), np.dtype(
@@ -84,11 +124,10 @@ def compress(data, tolerance: float, s: float = math.inf,
         raise TypeError("only float32/float64 data is supported")
     emode = ErrorMode.REL if mode == "rel" else ErrorMode.ABS
     cfg = config or Config()
-    if cfg.adjust_shape or cfg.dd_method == "block" \
-            or cfg.dd_sizes is not None \
-            or plan_blocks(shape, dtype, cfg, dev) > 1:
+    if _needs_blocks(tuple(int(x) for x in shape), dtype, coordinates, cfg,
+                     dev):
         raise _not_ported("multi-block compression (domain decomposition, "
-                          "adjust_shape)", "queue A, item 8")
+                          "a reshaping adjust_shape)", "queue A, item 2")
     comp = get_compressor(shape, dtype, s=s, coordinates=coordinates,
                           config=cfg, device=dev)
     return comp.compress(data, tolerance, mode=emode)
@@ -96,7 +135,7 @@ def compress(data, tolerance: float, s: float = math.inf,
 
 def _config_from_header(header: fmt.Header) -> Config:
     if header.decomposition >= 2:
-        raise _not_ported("the hybrid decomposition", "queue A, item 9")
+        raise _not_ported("the hybrid decomposition", "queue A, item 1")
     return Config(decomposition=Decomposition(header.decomposition),
                   layout=Layout(header.layout))
 
@@ -104,11 +143,11 @@ def _config_from_header(header: fmt.Header) -> Config:
 def compressor_for(header: fmt.Header, device=None):
     """The compressor that decodes a parsed container."""
     if header.dd_grid is not None or header.dd_nblocks:
-        raise _not_ported("multi-block containers", "queue A, item 8")
+        raise _not_ported("multi-block containers", "queue A, item 2")
     if header.roi_block:
-        raise _not_ported("ROI containers", "queue A, item 10")
+        raise _not_ported("ROI containers", "queue A, item 6")
     if header.orig_shape is not None:
-        raise _not_ported("adjust_shape containers", "queue A, item 8")
+        raise _not_ported("adjust_shape containers", "queue A, item 2")
     return get_compressor(header.shape, header.dtype, s=header.s,
                           coordinates=header.coordinates,
                           config=_config_from_header(header),
@@ -120,7 +159,7 @@ def decompress(buf: bytes, device=None) -> np.ndarray:
     """Decompress a self-describing buffer written by either package."""
     buf = bytes(buf)
     if buf[:8] != fmt.MAGIC and buf[:5] == b"MGARD":
-        raise _not_ported("reference MGARD buffers", "queue A, item 11")
+        raise _not_ported("reference MGARD buffers", "queue A, item 7")
     header, sections = fmt.read_container(buf)
     return compressor_for(header, device).decompress_parsed(header,
                                                             sections)

@@ -1,6 +1,6 @@
-// K2-K4: the segmented chunked bitplane codec (ops/bitplane.py).
+// K2-K4, K11, K12: the chunked bitplane codec (ops/bitplane.py).
 //
-// A segment of n float32 values is cut into chunks of 32*C values; value
+// A segment of n values is cut into chunks of 32*C values; value
 // i*C + g of chunk c sits at row i, column g (values past n read as 0).
 // Column g of a chunk is one 32-value group: its 32 zigzag words are
 // bit-transposed so that plane word b holds bit b of the group's values
@@ -11,12 +11,18 @@
 // Every kernel maps one thread to one column g of one chunk: the thread
 // keeps its 32 words in registers, the 5-stage butterfly transposes them
 // there, and the loads and stores of a warp touch 32 consecutive words
-// of one row, so all global traffic is coalesced.  All three are bound
+// of one row, so all global traffic is coalesced.  All five are bound
 // by bytes (a few integer operations per byte moved).
 //
 //   K2 bp_quant_max             replaces mgard_tpu/ops/pallas_kernels.py:527
 //   K3 bp_quant_condense        replaces mgard_tpu/ops/pallas_kernels.py:459
 //   K4 bp_decode_condense_f32   replaces mgard_tpu/ops/pallas_kernels.py:605
+//   K12 bp_encode_condense      replaces mgard_tpu/ops/pallas_kernels.py:293
+//   K11 bp_decode_condense      replaces mgard_tpu/ops/pallas_kernels.py:690
+//
+// K2-K4 read and write float32 segments (the PYRAMID_SEG layout, the
+// quantizer fused in); K12 and K11 are K3 and K4 without it, on the flat
+// stream's int32 zigzag words and int32 values.
 //
 // The TPU kernels' DMA loops, 33-way switches and SMEM meta packing exist
 // only so that Mosaic issues copies at dynamic offsets; here a thread
@@ -84,6 +90,30 @@ __device__ __forceinline__ void load_quant(const float* __restrict__ x,
   }
 }
 
+// Planes 0..ec-1 of one column, LSB first, to stream rows row0...
+__device__ __forceinline__ void store_planes(const uint32_t (&r)[32], int ec,
+                                             size_t row0, int C, int g,
+                                             uint32_t* __restrict__ words) {
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    if (b < ec) words[(row0 + b) * C + g] = r[b];
+  }
+}
+
+// The inverse read: planes ec..31 are zero and their rows are not read.
+__device__ __forceinline__ void load_planes(const uint32_t* __restrict__ words,
+                                            int ec, size_t row0, int C, int g,
+                                            uint32_t (&r)[32]) {
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    r[b] = b < ec ? words[(row0 + b) * C + g] : 0u;
+  }
+}
+
+__device__ __forceinline__ int unzigzag(uint32_t z) {
+  return static_cast<int>(z >> 1) ^ -static_cast<int>(z & 1u);
+}
+
 __global__ void bp_quant_max_kernel(const float* __restrict__ x, long long n,
                                     int C, float invq,
                                     uint32_t* __restrict__ zmax,
@@ -119,11 +149,7 @@ __global__ void bp_quant_condense_kernel(const float* __restrict__ x,
   int st = 0;
   load_quant(x, n, static_cast<size_t>(c) * 32 * C + g, C, invq, r, st);
   butterfly(r);
-  const size_t row0 = static_cast<size_t>(offsets[c]);
-#pragma unroll
-  for (int b = 0; b < 32; ++b) {
-    if (b < ec) words[(row0 + b) * C + g] = r[b];
-  }
+  store_planes(r, ec, static_cast<size_t>(offsets[c]), C, g, words);
 }
 
 __global__ void bp_decode_condense_f32_kernel(
@@ -133,22 +159,53 @@ __global__ void bp_decode_condense_f32_kernel(
   const int c = blockIdx.x;
   const int g = blockIdx.y * blockDim.x + threadIdx.x;
   if (g >= C) return;
-  const int ec = e[c];
-  const size_t row0 = static_cast<size_t>(offsets[c]);
   uint32_t r[32];
-#pragma unroll
-  for (int b = 0; b < 32; ++b) {
-    r[b] = b < ec ? words[(row0 + b) * C + g] : 0u;
-  }
+  load_planes(words, e[c], static_cast<size_t>(offsets[c]), C, g, r);
   butterfly(r);
   const size_t base = static_cast<size_t>(c) * 32 * C + g;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const size_t k = base + static_cast<size_t>(i) * C;
     if (k < static_cast<size_t>(n)) {
-      const int v = static_cast<int>(r[i] >> 1) ^ -static_cast<int>(r[i] & 1u);
-      out[k] = __fmul_rn(__int2float_rn(v), quantum);
+      out[k] = __fmul_rn(__int2float_rn(unzigzag(r[i])), quantum);
     }
+  }
+}
+
+__global__ void bp_encode_condense_kernel(const uint32_t* __restrict__ z,
+                                          int C,
+                                          const int* __restrict__ offsets,
+                                          const int* __restrict__ e,
+                                          uint32_t* __restrict__ words) {
+  const int c = blockIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  const int ec = e[c];
+  if (g >= C || ec == 0) return;
+  const size_t base = static_cast<size_t>(c) * 32 * C + g;
+  uint32_t r[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) r[i] = z[base + static_cast<size_t>(i) * C];
+  butterfly(r);
+  store_planes(r, ec, static_cast<size_t>(offsets[c]), C, g, words);
+}
+
+__global__ void bp_decode_condense_kernel(const uint32_t* __restrict__ words,
+                                          int C,
+                                          const int* __restrict__ offsets,
+                                          const int* __restrict__ e,
+                                          int* __restrict__ out,
+                                          long long n) {
+  const int c = blockIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  if (g >= C) return;
+  uint32_t r[32];
+  load_planes(words, e[c], static_cast<size_t>(offsets[c]), C, g, r);
+  butterfly(r);
+  const size_t base = static_cast<size_t>(c) * 32 * C + g;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const size_t k = base + static_cast<size_t>(i) * C;
+    if (k < static_cast<size_t>(n)) out[k] = unzigzag(r[i]);
   }
 }
 
@@ -190,5 +247,25 @@ extern "C" cudaError_t mgard_bp_decode_condense_f32(
   bp_decode_condense_f32_kernel<<<codec_grid(nchunks, C, threads), threads,
                                   0, stream>>>(words, C, offsets, e, quantum,
                                                out, n);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_encode_condense(
+    const uint32_t* z, int nchunks, int C, const int* offsets, const int* e,
+    uint32_t* words, cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_encode_condense_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
+                              stream>>>(z, C, offsets, e, words);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_decode_condense(
+    const uint32_t* words, int nchunks, int C, const int* offsets,
+    const int* e, int* out, long long n, cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_decode_condense_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
+                              stream>>>(words, C, offsets, e, out, n);
   return cudaGetLastError();
 }

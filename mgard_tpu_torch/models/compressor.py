@@ -1,19 +1,30 @@
 """The low-level compressor pipeline for one device and one domain: the
-port of the segmented float32 L-infinity branch of
+port of the MULTIDIM L-infinity branches of
 ``mgard_tpu/models/compressor.py``.
 
     decompose -> quantize + bitplane encode -> container sections
 
+Two routes, chosen as the JAX package chooses them:
+
+* **segmented** (the PYRAMID_SEG layout with a chunked lossless on
+  float32 data): ``bitplane.encode_segments`` quantizes each pyramid
+  level inside the codec kernels (K2-K4);
+* **flat** (everything else the port has): ``_quantized_flat`` scales,
+  concatenates and rounds the pyramid into one integer stream, which
+  one of three codecs encodes: the chunked ``bitplane.encode`` (K12,
+  K11), the per-group ``encode_pergroup`` (the default under 2^22
+  values) or, for float64 data, the wide ``encode64``.
+
 Device work is :meth:`Compressor.encode_device` and
 :meth:`Compressor.decode_device`; host code reads back the variable-length
-stream and assembles the container.  The main path syncs with the device
+stream and assembles the container.  A round trip syncs with the device
 three times: the status and word count, the stream's read-back, and the
 decoded array's ``.cpu()``.
 
 Branches of the JAX package that the port does not have yet (finite s,
-the per-group codec, float64, the zstd/LZ4 second stages, the
-non-segmented layouts) raise ``NotImplementedError`` naming their
-ROADMAP entry.
+the FINE and LEVEL_BLOCKS layouts, the SINGLEDIM and HYBRID
+decompositions, the host losslesses, the zstd/LZ4 second stages) raise
+``NotImplementedError`` naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -29,14 +40,25 @@ from ..config import Config, Decomposition, ErrorMode, Layout, Lossless
 from ..hierarchy import Hierarchy
 from ..io import format as fmt
 from ..ops import bitplane, transform
-from ..ops.quantize import inverse_quantum, supremum_quantum
+from ..ops.quantize import (TORCH_DTYPE, dequantize_pyramid, inverse_quantum,
+                            round_quantize, scale_pyramid, supremum_quantum)
+
+_F64 = np.dtype(np.float64)
+# Small domains get per-group exponents (compressor.py:79-86) ...
+_TO_GROUPED = {Lossless.BITPLANE: Lossless.BITPLANE_GROUP,
+               Lossless.BITPLANE_ZSTD: Lossless.BITPLANE_GROUP_ZSTD,
+               Lossless.BITPLANE_LZ4: Lossless.BITPLANE_GROUP_LZ4}
+# ... and float64 always rides the wide chunked codec (:87-95).
+_TO_CHUNKED = {v: k for k, v in _TO_GROUPED.items()}
+_HOST_LOSSLESS = (Lossless.HUFFMAN_ZLIB, Lossless.HUFFMAN_ZSTD,
+                  Lossless.NONE)
 
 
 def _raise_status(status: int) -> None:
     """Map device-side failure flags to typed errors."""
     if status == 1:
         raise OverflowError(
-            "quantized coefficients exceed the int32 range — the "
+            "quantized coefficients exceed the integer range — the "
             "tolerance is too small for this data's dynamic range")
     if status == 2:
         raise ValueError("input contains NaN or Inf values")
@@ -45,6 +67,10 @@ def _raise_status(status: int) -> None:
 def _not_ported(what: str, entry: str):
     return NotImplementedError(
         f"{what} is not ported to mgard_tpu_torch yet (ROADMAP {entry})")
+
+
+def _corrupted(what: str):
+    return ValueError(f"corrupted buffer: {what}")
 
 
 class Compressor:
@@ -56,49 +82,95 @@ class Compressor:
                  device="cuda"):
         self.hier = hier
         self.dtype = np.dtype(dtype)
+        if self.dtype not in TORCH_DTYPE:
+            raise TypeError("only float32/float64 data is supported")
         self.s = float(s)
         self.config = config or Config()
         self.device = torch.device(device)
+        wide = self.dtype == _F64
         # Codec chunk width: a wire parameter the header records.
         self.chunk_groups = int(chunk_groups) \
-            or int(self.config.chunk_groups) or bitplane.CHUNK_GROUPS
-        # Small domains get per-group exponents (compressor.py:79-86).
+            or int(self.config.chunk_groups) \
+            or (bitplane.WIDE_CHUNK_GROUPS if wide else bitplane.CHUNK_GROUPS)
         lossless = self.config.lossless
         if self.config.adapt_lossless and hier.ndof() < (1 << 22) \
-                and self.dtype != np.dtype(np.float64):
-            lossless = {
-                Lossless.BITPLANE: Lossless.BITPLANE_GROUP,
-                Lossless.BITPLANE_ZSTD: Lossless.BITPLANE_GROUP_ZSTD,
-                Lossless.BITPLANE_LZ4: Lossless.BITPLANE_GROUP_LZ4,
-            }.get(lossless, lossless)
+                and not wide:
+            lossless = _TO_GROUPED.get(lossless, lossless)
+        if wide:
+            lossless = _TO_CHUNKED.get(lossless, lossless)
         self.lossless = lossless
         self._seg_capable = (
             self.config.decomposition == Decomposition.MULTIDIM
             and self.config.layout == Layout.PYRAMID_SEG
-            and self.dtype == np.dtype(np.float32))
-        self._segmented = self._seg_capable and lossless.chunked
+            and not wide)
         self._seg_sizes = tuple(
             int(np.prod(hier.shapes[l])) for l in range(hier.L + 1))
+        # Values in the flat stream: the pyramid's for the PYRAMID layouts.
+        self._nstream = sum(self._seg_sizes) \
+            if self.config.layout in (Layout.PYRAMID, Layout.PYRAMID_SEG) \
+            else hier.ndof()
 
-    def _check_ported(self, lossless: Lossless, segmented: bool) -> None:
-        if self.dtype != np.dtype(np.float32):
-            raise _not_ported("float64 data (the 64-bitplane codec)",
-                              "queue A, item 5")
+    def _codec(self, lossless: Lossless) -> str:
+        """Which stream a lossless id means here (the order of
+        ``_decode_impl_fn``): 'segmented', 'wide', 'grouped' or
+        'chunked'."""
+        if self._seg_capable and lossless.chunked:
+            return "segmented"
+        if self.dtype == _F64:
+            return "wide"
+        return "grouped" if lossless.grouped else "chunked"
+
+    def _check_ported(self, lossless: Lossless) -> None:
         if not math.isinf(self.s):
             raise _not_ported("s-norm error control (finite s)",
-                              "queue A, item 6")
-        if lossless.grouped:
-            raise _not_ported(
-                "the per-group codec (BITPLANE_GROUP; the default under "
-                "2^22 values, pass Config(adapt_lossless=False))",
-                "queue A, item 5")
-        if not segmented:
-            raise _not_ported(f"lossless {lossless.name} with layout "
-                              f"{self.config.layout.name}",
-                              "queue A, items 5 and 7")
+                              "queue A, item 3")
+        if self.config.decomposition != Decomposition.MULTIDIM:
+            raise _not_ported(f"the {self.config.decomposition.name} "
+                              "decomposition", "queue A, item 1")
+        if self.config.layout not in (Layout.PYRAMID, Layout.PYRAMID_SEG):
+            raise _not_ported(f"the {self.config.layout.name} layout",
+                              "queue A, item 1")
+        if lossless in _HOST_LOSSLESS:
+            raise _not_ported(f"the host lossless {lossless.name}",
+                              "queue A, item 4")
         if lossless.second_stage is not None:
             raise _not_ported(f"the {lossless.second_stage} second stage",
-                              "queue A, item 7")
+                              "queue A, item 4")
+
+    # ------------------------------------------------------------------
+    # the flat stream
+    # ------------------------------------------------------------------
+    def _quantized_flat(self, v: torch.Tensor, tol: float):
+        """Decompose + quantize -> (flat int32 stream, or int64 for
+        float64 data; status int32 scalar) (``compressor.py:197``).
+
+        The status guards read the float stream before the integer cast
+        (which would saturate or wrap silently): 1 when max|scaled| is not
+        below the ceiling (2^31 - 1, or 2^62 for float64; a NaN fails the
+        test too), 2 when the input holds a NaN or an Inf."""
+        pyr = transform.decompose(self.hier, v)
+        spyr = scale_pyramid(self.hier, pyr, self.s, tol)
+        del pyr
+        scaledf = torch.cat([p.reshape(-1) for p in spyr])
+        del spyr
+        wide = scaledf.dtype == torch.float64
+        flat = round_quantize(scaledf, torch.int64 if wide else torch.int32)
+        limit = 2.0 ** 62 if wide else 2.0 ** 31 - 1
+        amax = scaledf.abs().max().double()
+        overflow = torch.logical_not(amax < limit).to(torch.int32)
+        nonfinite = torch.logical_not(torch.isfinite(v).all()
+                                      ).to(torch.int32) * 2
+        return flat, torch.maximum(overflow, nonfinite)
+
+    def _flat_to_array(self, flat: torch.Tensor, tol: float) -> torch.Tensor:
+        """Dequantize + recompose a flat integer stream (inverse of
+        :meth:`_quantized_flat`)."""
+        qpyr, off = [], 0
+        for shp, size in zip(self.hier.shapes, self._seg_sizes):
+            qpyr.append(flat[off:off + size].reshape(shp))
+            off += size
+        pyr = dequantize_pyramid(self.hier, qpyr, self.s, tol, self.dtype)
+        return transform.recompose(self.hier, pyr)
 
     # ------------------------------------------------------------------
     # device work
@@ -106,20 +178,45 @@ class Compressor:
     def encode_device(self, v: torch.Tensor, abs_tol: float):
         """decompose + quantize + encode on the device: ``(exponents,
         words, count, status)`` tensors, not yet read back."""
-        self._check_ported(self.lossless, self._segmented)
-        pyr = transform.decompose(self.hier, v)
-        return bitplane.encode_segments(
-            pyr, float(inverse_quantum(self.hier, abs_tol)),
-            C=self.chunk_groups)
+        self._check_ported(self.lossless)
+        codec = self._codec(self.lossless)
+        C = self.chunk_groups
+        if codec == "segmented":
+            pyr = transform.decompose(self.hier, v)
+            return bitplane.encode_segments(
+                pyr, float(inverse_quantum(self.hier, abs_tol)), C=C)
+        flat, status = self._quantized_flat(v, abs_tol)
+        if codec == "wide":
+            out = bitplane.encode64(flat, C=C)
+        elif codec == "grouped":
+            out = bitplane.encode_pergroup(flat)
+        else:
+            out = bitplane.encode(flat, C=C)
+        return (*out, status)
 
     def decode_device(self, exponents: torch.Tensor, words: torch.Tensor,
-                      abs_tol: float) -> torch.Tensor:
-        """Decode + dequantize + recompose on the device."""
-        q = float(supremum_quantum(self.hier, abs_tol))
-        segs = bitplane.decode_segments(exponents, words, self._seg_sizes,
-                                        quantum=q, C=self.chunk_groups)
-        pyr = [s.reshape(self.hier.shapes[l]) for l, s in enumerate(segs)]
-        return transform.recompose(self.hier, pyr)
+                      abs_tol: float, lossless: Optional[Lossless] = None
+                      ) -> torch.Tensor:
+        """Decode + dequantize + recompose on the device; ``lossless`` is
+        the container's (default: this compressor's)."""
+        lossless = self.lossless if lossless is None else lossless
+        self._check_ported(lossless)
+        codec = self._codec(lossless)
+        C = self.chunk_groups
+        if codec == "segmented":
+            q = float(supremum_quantum(self.hier, abs_tol))
+            segs = bitplane.decode_segments(exponents, words,
+                                            self._seg_sizes, quantum=q, C=C)
+            pyr = [s.reshape(self.hier.shapes[l])
+                   for l, s in enumerate(segs)]
+            return transform.recompose(self.hier, pyr)
+        if codec == "wide":
+            flat = bitplane.decode64(exponents, words, self._nstream, C=C)
+        elif codec == "grouped":
+            flat = bitplane.decode_pergroup(exponents, words, self._nstream)
+        else:
+            flat = bitplane.decode(exponents, words, self._nstream, C=C)
+        return self._flat_to_array(flat, abs_tol)
 
     # ------------------------------------------------------------------
     # host-facing API
@@ -136,15 +233,16 @@ class Compressor:
                                f"{words.numel()}")
         exp_np = exponents.cpu().numpy()
         words_np = words[:count].cpu().numpy()
-        # Trailing all-zero chunks carry no stream rows; drop their
-        # exponent bytes (the decoder zero-fills back to the full count).
+        # Trailing all-zero chunks (groups) carry no stream words; drop
+        # their exponent bytes (the decoder zero-fills back to the full
+        # count).
         nz = np.nonzero(exp_np)[0]
         exp_np = exp_np[:int(nz[-1]) + 1] if len(nz) else exp_np[:0]
         return [exp_np.tobytes(), words_np.astype("<i4").tobytes()]
 
     def _as_tensor(self, v) -> torch.Tensor:
         if isinstance(v, torch.Tensor):
-            t = v.to(device=self.device, dtype=torch.float32)
+            t = v.to(device=self.device, dtype=TORCH_DTYPE[self.dtype])
         else:
             t = torch.from_numpy(np.ascontiguousarray(
                 v, dtype=self.dtype)).to(self.device)
@@ -155,7 +253,7 @@ class Compressor:
 
     def compress(self, v, tolerance: float,
                  mode: ErrorMode = ErrorMode.ABS) -> bytes:
-        self._check_ported(self.lossless, self._segmented)
+        self._check_ported(self.lossless)
         v = self._as_tensor(v)
         norm = 1.0
         abs_tol = float(tolerance)
@@ -179,27 +277,47 @@ class Compressor:
                           sections: List[bytes]) -> np.ndarray:
         return self.decode_async(header, sections).cpu().numpy()
 
+    def _stream_geometry(self, codec: str) -> Tuple[int, int, int]:
+        """(exponent count, words per exponent unit, most planes a unit)
+        of a stream (``compressor.py:587-604``)."""
+        C, n = self.chunk_groups, self._nstream
+        if codec == "segmented":
+            return (sum(bitplane.num_chunks_tiled(sz, C)
+                        for sz in self._seg_sizes), C, 32)
+        if codec == "grouped":
+            # per-group exponents are padded to whole chunks of the
+            # container's width
+            return bitplane.num_chunks(n, C) * C, 1, 32
+        if codec == "wide":
+            return bitplane.num_chunks64_tiled(n, C), C, 64
+        return bitplane.num_chunks_tiled(n, C), C, 32
+
     def stream_tensors(self, header: fmt.Header, sections: List[bytes]
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The container's exponents (zero-filled to the full chunk
-        count, uint8) and stream words (int32) on the device."""
+        """The container's exponents (zero-filled to the full count,
+        uint8) and stream words (int32) on the device, after checking
+        that their sizes agree with the header and with each other."""
         if tuple(header.shape) != self.hier.shape:
             raise ValueError("container shape mismatch")
         hls = Lossless(header.lossless)
-        self._check_ported(hls, self._seg_capable and hls.chunked)
+        self._check_ported(hls)
+        codec = self._codec(hls)
+        n_exp, unit, max_planes = self._stream_geometry(codec)
         exp_bytes, word_bytes = sections[0], sections[1]
-        C = self.chunk_groups
-        n_exp = sum(bitplane.num_chunks_tiled(sz, C)
-                    for sz in self._seg_sizes)
         stored = np.frombuffer(exp_bytes, dtype=np.uint8)
-        if len(stored) > n_exp or len(word_bytes) % (4 * C):
-            raise ValueError("corrupted buffer: stream sizes do not match "
-                             "the header")
+        if len(stored) > n_exp or len(word_bytes) % (4 * unit):
+            raise _corrupted("stream sizes do not match the header")
         exponents = np.zeros(n_exp, dtype=np.uint8)
         exponents[:len(stored)] = stored
-        if int(exponents.sum(dtype=np.int64)) * C * 4 != len(word_bytes):
-            raise ValueError("corrupted buffer: exponents and word count "
-                             "disagree")
+        if len(stored) and int(stored.max()) > max_planes:
+            raise _corrupted(f"an exponent exceeds {max_planes} planes")
+        e = exponents.astype(np.int64)
+        # words a unit stores: e rows of C words (chunked codecs), or a
+        # sign word and e planes (per-group)
+        nwords = int(((e + (e > 0)) if codec == "grouped" else e).sum()) \
+            * unit
+        if nwords * 4 != len(word_bytes):
+            raise _corrupted("exponents and word count disagree")
         words = np.frombuffer(word_bytes, dtype="<i4").astype(np.int32)
         return (torch.from_numpy(exponents).to(self.device),
                 torch.from_numpy(words).to(self.device))
@@ -209,7 +327,8 @@ class Compressor:
         """Decode a parsed container to a tensor on the device, without
         reading it back."""
         exponents, words = self.stream_tensors(header, sections)
-        return self.decode_device(exponents, words, header.tolerance)
+        return self.decode_device(exponents, words, header.tolerance,
+                                  Lossless(header.lossless))
 
 
 @functools.lru_cache(maxsize=32)

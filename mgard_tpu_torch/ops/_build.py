@@ -42,6 +42,8 @@ _SIGNATURES = {
     "mgard_bp_quant_max": (_P, _LL, _I, _I, _F, _P, _P, _P),
     "mgard_bp_quant_condense": (_P, _LL, _I, _I, _F, _P, _P, _P, _P),
     "mgard_bp_decode_condense_f32": (_P, _I, _I, _P, _P, _F, _P, _LL, _P),
+    "mgard_bp_encode_condense": (_P, _I, _I, _P, _P, _P, _P),
+    "mgard_bp_decode_condense": (_P, _I, _I, _P, _P, _P, _LL, _P),
     "mgard_gpk_detail": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mgard_gpk_prolong_add": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _P),

@@ -1,5 +1,6 @@
-"""K2-K4: the kernels of the segmented bitplane codec, with their plain
-PyTorch versions (the counterpart of ``mgard_tpu/ops/pallas_kernels.py``).
+"""K2-K4, K11, K12: the kernels of the chunked bitplane codec, with their
+plain PyTorch versions (the counterpart of
+``mgard_tpu/ops/pallas_kernels.py``).
 
 A segment is a float32 tensor of ``n`` values cut into ``nchunks`` chunks
 of ``32 * C`` values (zero past ``n``); value ``i*C + g`` of a chunk is
@@ -14,11 +15,20 @@ bit patterns of the wire's uint32 words.
 * K4 ``bp_decode_condense_f32`` (replaces ``pallas_kernels.py:605``):
   the inverse, dequantized to float32.
 
+The flat stream (``bitplane.encode``/``decode``) comes quantized already,
+as int32 values; its two kernels are K3 and K4 without the quantizer:
+
+* K12 ``bp_encode_condense`` (replaces ``pallas_kernels.py:293``): int32
+  zigzag words ``(nchunks, 32, C)`` bit-transposed and condensed.
+* K11 ``bp_decode_condense`` (replaces ``pallas_kernels.py:690``): the
+  inverse, unzigzagged to int32.
+
 Each wrapper launches its CUDA kernel (``csrc/bp_codec.cu``) for a CUDA
 tensor and counts the launch; it takes the plain version only for a
-tensor on the CPU.  All three are bound by bytes: K2 reads the segment,
-K3 reads it and writes the stream rows, K4 reads the rows and writes the
-segment.  The plain versions hold words in int64 (values in [0, 2^32)).
+tensor on the CPU.  All five are bound by bytes: K2 reads the segment,
+K3 and K12 read it and write the stream rows, K4 and K11 read the rows
+and write the values.  The plain versions hold words in int64 (values
+in [0, 2^32)).
 """
 
 from __future__ import annotations
@@ -28,8 +38,11 @@ import torch
 from . import _build
 
 __all__ = ["bp_quant_max", "bp_quant_condense", "bp_decode_condense_f32",
+           "bp_encode_condense", "bp_decode_condense",
            "bp_quant_max_plain", "bp_quant_condense_plain",
-           "bp_decode_condense_f32_plain", "butterfly", "GROUP"]
+           "bp_decode_condense_f32_plain", "bp_encode_condense_plain",
+           "bp_decode_condense_plain", "butterfly", "chunked", "gather_planes",
+           "scatter_planes", "GROUP"]
 
 GROUP = 32
 _U32 = 0xFFFFFFFF
@@ -57,8 +70,9 @@ def butterfly(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.stack(rows, dim)
 
 
-def _chunked(seg: torch.Tensor, nchunks: int, C: int) -> torch.Tensor:
-    """Flatten a segment and zero-pad it to (nchunks, 32, C)."""
+def chunked(seg: torch.Tensor, nchunks: int, C: int) -> torch.Tensor:
+    """Flatten a segment (of any dtype) and zero-pad it to
+    (nchunks, 32, C)."""
     f = seg.reshape(-1)
     pad = nchunks * GROUP * C - f.numel()
     if pad:
@@ -79,6 +93,36 @@ def _quant_zigzag(x: torch.Tensor, inv_q: float) -> torch.Tensor:
 def _to_i32(w: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 bit patterns."""
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def scatter_planes(planes: torch.Tensor, offsets, e, words) -> None:
+    """Write planes 0..e_c-1 of chunk c (``planes`` int64 (nchunks, P, C)
+    in [0, 2^32)) to the C-word rows ``offsets[c]...`` of ``words``
+    (int32 bit patterns), in place."""
+    C = planes.shape[2]
+    b = torch.arange(planes.shape[1], device=planes.device)
+    valid = b[None, :] < e[:, None]
+    rows = offsets[:, None].long() + b[None, :]
+    words.view(-1, C)[rows[valid]] = _to_i32(planes[valid])
+
+
+def gather_planes(words, C: int, offsets, e, nplanes: int = GROUP
+                  ) -> torch.Tensor:
+    """The inverse read: (nchunks, nplanes, C) int64 planes, row
+    ``offsets[c] + b`` for b < e_c and zero above.  A stream with no
+    words (every e is 0) reads as zeros."""
+    rows = words.view(-1, C)
+    if rows.shape[0] == 0:
+        rows = words.new_zeros(1, C)
+    b = torch.arange(nplanes, device=words.device)
+    idx = (offsets[:, None].long() + b[None, :]).clamp(0, rows.shape[0] - 1)
+    valid = b[None, :] < e[:, None]
+    return torch.where(valid[:, :, None], rows[idx].long() & _U32, 0)
+
+
+def _unzigzag(z: torch.Tensor) -> torch.Tensor:
+    """int64 zigzag words in [0, 2^32) -> their int32 values, as int64."""
+    return (z >> 1) ^ -(z & 1)
 
 
 def _check_cuda(name: str, *tensors) -> None:
@@ -102,7 +146,7 @@ def _check_chunks(seg, nchunks, C):
 # ---------------------------------------------------------------------------
 
 def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
-    x = _chunked(seg, nchunks, C)
+    x = chunked(seg, nchunks, C)
     bad = (~torch.isfinite(x)).flatten(1).any(1)
     xs = x * torch.tensor(inv_q, dtype=torch.float32, device=x.device)
     over = (xs.abs() + 0.5 >= 2.0 ** 31).flatten(1).any(1)
@@ -135,11 +179,8 @@ def bp_quant_max(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
 
 def bp_quant_condense_plain(seg, nchunks: int, C: int, inv_q: float,
                             offsets, e, words) -> None:
-    planes = butterfly(_quant_zigzag(_chunked(seg, nchunks, C), inv_q), 1)
-    b = torch.arange(GROUP, device=seg.device)
-    valid = b[None, :] < e[:, None]
-    rows = offsets[:, None].long() + b[None, :]
-    words.view(-1, C)[rows[valid]] = _to_i32(planes[valid])
+    planes = butterfly(_quant_zigzag(chunked(seg, nchunks, C), inv_q), 1)
+    scatter_planes(planes, offsets, e, words)
 
 
 @_build.counted
@@ -174,15 +215,9 @@ def bp_quant_condense(seg: torch.Tensor, nchunks: int, C: int,
 
 def bp_decode_condense_f32_plain(words, C: int, offsets, e, quantum: float,
                                  n: int) -> torch.Tensor:
-    rows = words.view(-1, C)
-    b = torch.arange(GROUP, device=words.device)
-    idx = (offsets[:, None].long() + b[None, :]).clamp(0, rows.shape[0] - 1)
-    valid = b[None, :] < e[:, None]
-    planes = torch.where(valid[:, :, None], rows[idx].long() & _U32, 0)
-    z = butterfly(planes, 1)
-    v = (z >> 1) ^ -(z & 1)
-    out = v.to(torch.float32) * torch.tensor(quantum, dtype=torch.float32,
-                                             device=words.device)
+    z = butterfly(gather_planes(words, C, offsets, e), 1)
+    out = _unzigzag(z).to(torch.float32) * torch.tensor(
+        quantum, dtype=torch.float32, device=words.device)
     return out.reshape(-1)[:n]
 
 
@@ -209,4 +244,74 @@ def bp_decode_condense_f32(words: torch.Tensor, C: int,
                   C, offsets.data_ptr(), e.data_ptr(), float(quantum),
                   out.data_ptr(), n)
     bp_decode_condense_f32.launches += 1
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# K12: transpose + condense pre-quantized zigzag words into the stream
+# ---------------------------------------------------------------------------
+
+def _check_stream_args(name, offsets, e, words, nchunks):
+    if offsets.numel() != nchunks or e.numel() != nchunks:
+        raise ValueError(f"{name}: offsets and e need one entry per chunk")
+    if offsets.dtype != torch.int32 or e.dtype != torch.int32 \
+            or words.dtype != torch.int32:
+        raise ValueError(f"{name}: offsets, e and words must be int32")
+
+
+def bp_encode_condense_plain(z, offsets, e, words) -> None:
+    scatter_planes(butterfly(z.long() & _U32, 1), offsets, e, words)
+
+
+@_build.counted
+def bp_encode_condense(z: torch.Tensor, offsets: torch.Tensor,
+                       e: torch.Tensor, words: torch.Tensor) -> None:
+    """Write the stream rows of the zigzag words ``z`` (int32 uint32 bit
+    patterns, (nchunks, 32, C)) into ``words`` (int32, whole C-word rows)
+    in place: chunk c's planes 0..e_c-1 at rows ``offsets[c]...``.  The
+    caller sizes ``words`` to hold every row they address."""
+    if z.dim() != 3 or z.shape[1] != GROUP or z.dtype != torch.int32:
+        raise ValueError("z must be int32 (nchunks, 32, C)")
+    nchunks, _, C = z.shape
+    _check_stream_args("bp_encode_condense", offsets, e, words, nchunks)
+    if words.numel() % C:
+        raise ValueError("the stream must hold whole C-word rows")
+    if z.device.type == "cpu":
+        return bp_encode_condense_plain(z, offsets, e, words)
+    _check_cuda("bp_encode_condense", z, offsets, e, words)
+    _build.launch("mgard_bp_encode_condense", z.data_ptr(), nchunks, C,
+                  offsets.data_ptr(), e.data_ptr(), words.data_ptr())
+    bp_encode_condense.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K11: read e_c rows per chunk, transpose back, unzigzag
+# ---------------------------------------------------------------------------
+
+def bp_decode_condense_plain(words, C: int, offsets, e, n: int
+                             ) -> torch.Tensor:
+    z = butterfly(gather_planes(words, C, offsets, e), 1)
+    return _unzigzag(z).to(torch.int32).reshape(-1)[:n]
+
+
+@_build.counted
+def bp_decode_condense(words: torch.Tensor, C: int, offsets: torch.Tensor,
+                       e: torch.Tensor, n: int) -> torch.Tensor:
+    """Decode ``n`` int32 values from the stream rows of their chunks
+    (``offsets``/``e`` int32, one entry per chunk).  Each chunk reads its
+    own ``e`` rows and nothing past them."""
+    nchunks = int(offsets.numel())
+    if n > nchunks * GROUP * C:
+        raise ValueError("offsets/e do not cover the values")
+    _check_stream_args("bp_decode_condense", offsets, e, words, nchunks)
+    if words.numel() % C:
+        raise ValueError("the stream must hold whole C-word rows")
+    if words.device.type == "cpu":
+        return bp_decode_condense_plain(words, C, offsets, e, n)
+    _check_cuda("bp_decode_condense", words, offsets, e)
+    out = torch.empty(n, dtype=torch.int32, device=words.device)
+    _build.launch("mgard_bp_decode_condense", words.data_ptr(), nchunks, C,
+                  offsets.data_ptr(), e.data_ptr(), out.data_ptr(), n)
+    bp_decode_condense.launches += 1
     return out

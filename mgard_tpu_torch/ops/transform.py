@@ -12,12 +12,15 @@ values:
 
 ``recompose`` runs the exact inverse, with K6 or the matmuls for
 ``P + detail``.  The per-dim operators are small dense float64 matrices
-built on the host from the hierarchy's tables, cast to float32 and
-applied as tensordots in full float32 (no TF32; the package turns it off
-at import).  As in the JAX package, the interpolation goes through the
+built on the host from the hierarchy's tables, cast to the data's dtype
+and applied as tensordots in it: full float32 (no TF32; the package
+turns it off at import), or float64 for float64 data, as the JAX package
+runs it.  As in the JAX package, the interpolation goes through the
 GPK stencil kernels (``ops/stencil_kernels.py``) at every level their
-gate admits; the gate admits only CUDA tensors, so off the card the
-transform takes the matmul form, as the JAX package does off the TPU.
+gate admits; the gate admits only float32 CUDA tensors, so off the card
+the transform takes the matmul form, as the JAX package does off the
+TPU, and float64 data takes it everywhere (K1 is float32 only too, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -122,11 +125,12 @@ def _prolong_matrices(hier: Hierarchy, l: int):
     return _cached(hier, "_prolong_mats", l, build)
 
 
-def _device_mats(hier: Hierarchy, name: str, l: int, mats, device):
-    """float32 copies of host operator matrices on ``device`` (cached)."""
-    return _cached(hier, f"{name}@{device}", l, lambda: [
-        None if M is None else torch.as_tensor(M, dtype=torch.float32,
-                                               device=device)
+def _device_mats(hier: Hierarchy, name: str, l: int, mats, like):
+    """Copies of host operator matrices in the dtype and on the device
+    of the tensor ``like`` (cached per dtype and device)."""
+    return _cached(hier, f"{name}@{like.device}@{like.dtype}", l, lambda: [
+        None if M is None else torch.as_tensor(M, dtype=like.dtype,
+                                               device=like.device)
         for M in mats])
 
 
@@ -159,7 +163,7 @@ def _check_matmul(hier: Hierarchy, l: int) -> None:
     if any(hier.dims[d][l].n > _MATMUL_MAX_N for d in _level_dims(hier, l)):
         raise NotImplementedError(
             f"dims over {_MATMUL_MAX_N} nodes need the tridiagonal-scan "
-            "transform (ROADMAP queue A, item 2), not ported yet")
+            "transform (ROADMAP queue A, item 5), not ported yet")
 
 
 def extract_old(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
@@ -181,14 +185,14 @@ def _extract_old_all(hier: Hierarchy, A: torch.Tensor, l: int):
 
 def _prolong_all(hier: Hierarchy, C: torch.Tensor, l: int):
     mats = _device_mats(hier, "_prolong_mats", l, _prolong_matrices(hier, l),
-                        C.device)
+                        C)
     return _apply_matrix_chain(C, mats, _level_dims(hier, l))
 
 
 def _correction(hier: Hierarchy, detail: torch.Tensor, l: int):
     """M_{l-1}^{-1} R_l M_l applied to a dense level-l detail array."""
     mats = _device_mats(hier, "_corr_mats", l,
-                        _correction_matrices(hier, l), detail.device)
+                        _correction_matrices(hier, l), detail)
     return _apply_matrix_chain(detail, mats, _level_dims(hier, l))
 
 

@@ -83,17 +83,18 @@ def test_status_errors():
 def test_unported_branches_raise():
     v = _field((33, 33, 33))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, device="cpu")      # per-group codec at < 2^22
+        mt.compress(v, 1e-3, device="cpu",      # the FINE layout
+                    config=mt.Config(layout=mt.config.Layout.FINE))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.compress(v, 1e-3, s=0.0, device="cpu",
                     config=mt.Config(adapt_lossless=False))
-    grouped = tfmt.write_container(tfmt.Header(
+    huffman = tfmt.write_container(tfmt.Header(
         dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
         error_mode=0, s=math.inf, tolerance=1e-3, norm=1.0,
-        lossless=int(JLossless.BITPLANE_GROUP), n_levels=5,
-        section_sizes=(), layout=3, chunk_groups=4096), [b"", b""])
+        lossless=int(JLossless.HUFFMAN_ZLIB), n_levels=5,
+        section_sizes=(), layout=3, chunk_groups=4096), [b""])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.decompress(grouped, device="cpu")
+        mt.decompress(huffman, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.compress(v, 1e-3, device="cpu",
                     config=mt.Config(adapt_lossless=False,
@@ -134,6 +135,8 @@ def test_port_imports_no_jax():
     code = ("import sys, mgard_tpu_torch, mgard_tpu_torch.api, "
             "mgard_tpu_torch.ops.transform, mgard_tpu_torch.ops.bitplane, "
             "mgard_tpu_torch.ops.stencil_kernels, "
+            "mgard_tpu_torch.ops.bp_kernels, mgard_tpu_torch.ops.quantize, "
+            "mgard_tpu_torch.models.compressor, "
             "mgard_tpu_torch.io.carry, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mgard_tpu' "
