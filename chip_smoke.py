@@ -7,8 +7,9 @@ Builds the port's CUDA kernels (one ``nvcc`` call), holds each kernel
 against its plain PyTorch version at the shapes of the path that runs
 it, drives each path once through the public API (a 512^3 float32 field
 compressed at an absolute L-infinity tolerance of 1e-3 and decompressed
-again: segmented, then on the flat PYRAMID stream; the default per-group
-codec at 128^3; the 512^3 field as float64), checks every result, and
+again: segmented, with the one-pass GPK kernels and then with the
+two-pass ones; on the flat PYRAMID stream; the default per-group codec
+at 128^3; the 512^3 field as float64), checks every result, and
 prints the kernels' JSON line, the card's line and a last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero; without a CUDA device it exits non-zero before doing
@@ -16,36 +17,45 @@ anything.
 
 Phases (each prints its wall time):
   1. setup     - card name and power limit, versions, the kernel build;
-  2. kernels   - K1-K6 against their plain versions, on the main path's
-                 own inputs (the decomposition of the field; K5 on the
-                 field at the finest level, K6 on K1's coarse array and
-                 K5's detail), bit-identical, timed with CUDA events, and
-                 the matmul form that K5/K6 replace timed beside them;
-                 K12 and K11 on the flat PYRAMID stream of the field
-                 (with an int32 minimum planted in it), and K4 and K11
-                 on a stream with no words (every exponent 0);
-  3. nonuniform- K5 and K6 bit-identical to their plain versions on a
-                 grid with random coordinates: with the weights of 0.5 of
-                 a uniform grid every product is exact, so only such a
-                 grid shows a multiply-add that the compiler contracted;
+  2. kernels   - K1-K10 against their plain versions, on the main path's
+                 own inputs (the decomposition of the field; K5 and K7 on
+                 the field at the finest level, K8 on K7's output, K6 and
+                 K9 on K1's coarse array, K10 on K9's output, with K5's
+                 detail), bit-identical, timed with CUDA events, and the
+                 matmul form that K5/K6 replace timed beside them; K8 o K7
+                 bit-identical to K5 and K10 o K9 to K6; K12 and K11 on
+                 the flat PYRAMID stream of the field (with an int32
+                 minimum planted in it), and K4 and K11 on a stream with
+                 no words (every exponent 0);
+  3. nonuniform- K5-K10 bit-identical to their plain versions, and the
+                 two-pass compositions to K5/K6, on a grid with random
+                 coordinates: with the weights of 0.5 of a uniform grid
+                 every product is exact, so only such a grid shows a
+                 multiply-add that the compiler contracted;
   4. main path - mgard_tpu_torch.compress / decompress at 512^3 with the
                  launch counters set to 0 just before and read just
-                 after; K1-K6 launch, K5 and K6 once each, K11/K12 not;
+                 after; K1-K6 launch, K5 and K6 once each, K7-K12 not;
   5. timing    - device encode/decode by CUDA events, with the GPK
                  kernels on and then off (the matmul form), and the host
                  parts by host clock;
-  6. flat      - the same field with Config(layout=PYRAMID): the flat
+  6. two-pass  - the main path again with stencil_kernels._FUSED off
+                 (what MGARD_TPU_GPK_FUSED=0 sets at import): K7-K10 once
+                 each, K5/K6 not, the same container bytes as the main
+                 path; device encode/decode timed in turns with the
+                 one-pass kernels;
+  7. flat      - the same field with Config(layout=PYRAMID): the flat
                  chunked stream, K12 and K11 once each, K2-K4 not at all;
-  7. per-group - the default Config at 128^3 (under 2^22 values, so the
+  8. per-group - the default Config at 128^3 (under 2^22 values, so the
                  per-group codec; no codec kernel launches);
-  8. float64   - the 512^3 field as float64, default Config: the wide
+  9. float64   - the 512^3 field as float64, default Config: the wide
                  codec, 2048 groups a chunk, no kernel launches (every
                  kernel is float32 only, as in the JAX package);
-  9. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 10. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
-                 (32, 256, 256) (K5/K6 on the card): the pyramids agree
-                 and each container decodes on both within the tolerance;
- 10. summary   - the kernels line, the card line, the ok line.
+                 (32, 256, 256) (K5/K6 on the card, then K7-K10): the
+                 pyramids agree and each container decodes on both
+                 within the tolerance;
+ 11. summary   - the kernels line, the card line, the ok line.
 """
 
 from __future__ import annotations
@@ -81,6 +91,8 @@ SEGMENTED_KERNELS = ("extract_coarse_3d", "bp_quant_max", "bp_quant_condense",
                      "bp_decode_condense_f32", "gpk_detail",
                      "gpk_prolong_add")
 FLAT_KERNELS = ("bp_encode_condense", "bp_decode_condense")
+# The two-pass GPK kernels K7-K10 (stencil_kernels._FUSED off).
+TWO_PASS_KERNELS = ("run_b20", "run_b1sub", "run_dec_b20", "run_dec_b1add")
 
 
 def log(msg: str) -> None:
@@ -372,6 +384,45 @@ def stencil_counts(hier, l):
     return (8 * vals, ops), (4 * (nc[0] * nc[1] * nc[2]) + 8 * vals, ops)
 
 
+def two_pass_counts(hier, l):
+    """Bytes and operations that K7-K10 must move and do at level ``l``,
+    as :func:`stencil_counts` counts them; V0 goes through device memory
+    (K9's has the coarse dim 1).  K7 lerps B2 on the rows that are
+    parents in dim 0 and B0 at every j; K9 the same on the coarse
+    columns; K8 and K10 lerp B1 everywhere and subtract or add."""
+    n = [hier.dims[d][l].n for d in range(3)]
+    nc = [len(hier.dims[d][l].coarse_pos) for d in range(3)]
+    new = [a - b for a, b in zip(n, nc)]
+    vals = n[0] * n[1] * n[2]
+    v0c = n[0] * nc[1] * n[2]
+    b1 = OPS_LERP * n[0] * new[1] * n[2] + vals
+    return {"run_b20": (8 * vals, OPS_LERP * (nc[0] * n[1] * new[2]
+                                              + new[0] * n[1] * n[2])),
+            "run_b1sub": (12 * vals, b1),
+            "run_dec_b20": (4 * (nc[0] * nc[1] * nc[2] + v0c),
+                            OPS_LERP * (nc[0] * nc[1] * new[2]
+                                        + new[0] * nc[1] * n[2])),
+            "run_dec_b1add": (4 * v0c + 8 * vals, b1)}
+
+
+def check_compositions(hier, A, C, det, label):
+    """K8 o K7 against K5 and K10 o K9 against K6, bit for bit; ``det``
+    is K5's output on ``A``, ``C`` K1's."""
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    l = hier.L
+    errs = (max_abs_diff(sk.run_b1sub(hier, sk.run_b20(hier, A, l), A, l),
+                         det),
+            max_abs_diff(sk.run_dec_b1add(hier, sk.run_dec_b20(hier, C, l),
+                                          det, l),
+                         sk.gpk_prolong_add(hier, C, det, l)))
+    log(f"{label}: K8 o K7 against K5 max_abs_err={errs[0]}, K10 o K9 "
+        f"against K6 max_abs_err={errs[1]} (tolerance 0)")
+    if errs != (0.0, 0.0):
+        raise AssertionError(f"{label}: the two-pass kernels differ from "
+                             f"the one-pass ones: {errs}")
+
+
 def check_stencil(hier, v):
     """K5 on the field at the finest level and K6 on K1's coarse array
     with K5's detail, against their plain versions; the matmul form that
@@ -403,6 +454,29 @@ def check_stencil(hier, v):
     log(f"matmul form at level {l} (float32 SGEMMs and permutes, the path "
         f"without K5/K6): A - prolong(C) {mm_det:.4f} ms, prolong(C) + "
         f"detail {mm_add:.4f} ms")
+
+    # K7-K10, each on the output of the pass before it
+    V0 = sk.run_b20(hier, v, l)
+    W = sk.run_dec_b20(hier, C, l)
+    calls = {"run_b20": (lambda: sk.run_b20(hier, v, l),
+                         lambda: sk.run_b20_plain(hier, v, l),
+                         "stencil_kernels.py:177"),
+             "run_b1sub": (lambda: sk.run_b1sub(hier, V0, v, l),
+                           lambda: sk.run_b1sub_plain(hier, V0, v, l),
+                           "stencil_kernels.py:230"),
+             "run_dec_b20": (lambda: sk.run_dec_b20(hier, C, l),
+                             lambda: sk.run_dec_b20_plain(hier, C, l),
+                             "stencil_kernels.py:469"),
+             "run_dec_b1add": (lambda: sk.run_dec_b1add(hier, W, det, l),
+                               lambda: sk.run_dec_b1add_plain(hier, W, det,
+                                                              l),
+                               "stencil_kernels.py:522")}
+    counts = two_pass_counts(hier, l)
+    for name, (kernel, plain, line) in calls.items():
+        record(results, name, "mgard_tpu_torch/csrc/stencil.cu",
+               f"mgard_tpu/ops/{line}", max_abs_diff(kernel(), plain()),
+               cuda_ms(kernel, 10), cuda_ms(plain, 3), *counts[name])
+    check_compositions(hier, v, C, det, f"{SHAPE} level {l}")
     return results
 
 
@@ -432,16 +506,26 @@ def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
     C = xk.extract_coarse_3d(hier, A, l)
     err6 = max_abs_diff(sk.gpk_prolong_add(hier, C, det, l),
                         sk.gpk_prolong_add_plain(hier, C, det, l))
+    V0 = sk.run_b20(hier, A, l)
+    W = sk.run_dec_b20(hier, C, l)
+    errs = {"K5": err5, "K6": err6,
+            "K7": max_abs_diff(V0, sk.run_b20_plain(hier, A, l)),
+            "K8": max_abs_diff(sk.run_b1sub(hier, V0, A, l),
+                               sk.run_b1sub_plain(hier, V0, A, l)),
+            "K9": max_abs_diff(W, sk.run_dec_b20_plain(hier, C, l)),
+            "K10": max_abs_diff(sk.run_dec_b1add(hier, W, det, l),
+                                sk.run_dec_b1add_plain(hier, W, det, l))}
     moved = int((fma_detail(hier, A, l) != plain).sum())
-    log(f"nonuniform {shape}: K5 max_abs_err={err5}, K6 max_abs_err={err6} "
-        f"(tolerance 0); a K5 whose lerps were contracted into FMAs would "
-        f"differ at {moved} of {plain.numel()} values")
-    if err5 != 0.0 or err6 != 0.0:
-        raise AssertionError("K5/K6 differ from their plain versions on a "
+    log(f"nonuniform {shape}: max_abs_err {errs} (tolerance 0); a K5 whose "
+        f"lerps were contracted into FMAs would differ at {moved} of "
+        f"{plain.numel()} values")
+    if any(errs.values()):
+        raise AssertionError("K5-K10 differ from their plain versions on a "
                              "nonuniform grid")
     if moved == 0:
         raise AssertionError("the nonuniform grid would not show an FMA "
                              "contraction")
+    check_compositions(hier, A, C, det, f"nonuniform {shape}")
 
 
 def fma_detail(hier, A, l):
@@ -482,7 +566,7 @@ def main_path(v_host):
         f"{1e3 * (t2 - t1):.3f} ms (host clock, H2D and D2H included); "
         f"launches {counts}")
     missing = [k for k in SEGMENTED_KERNELS if counts[k] == 0]
-    extra = [k for k in FLAT_KERNELS if counts[k]]
+    extra = [k for k in FLAT_KERNELS + TWO_PASS_KERNELS if counts[k]]
     if missing or extra:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}; launched off it: {extra}")
@@ -557,6 +641,67 @@ def time_parts(v_host, buf):
     log(f"host: read-back + sections {1e3 * (t1 - t0):.3f} ms, container "
         f"write {1e3 * (t2 - t1):.3f} ms, container read + H2D "
         f"{1e3 * (t3 - t2):.3f} ms, decoded D2H {1e3 * (t5 - t4):.3f} ms")
+
+
+def two_pass_path(v_host, main_buf, main_counts):
+    """The main path with ``stencil_kernels._FUSED`` off, set in-process
+    as time_parts sets the gate: K7-K10 once each, K5/K6 never, the other
+    kernels as on the main path, and the same container bytes (the
+    arithmetic is the same).  Device encode and decode timed in turns
+    with the one-pass kernels."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.api import compressor_for
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    fused = sk._FUSED
+    try:
+        sk._FUSED = False
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        buf = mt.compress(v_host, TOL)
+        t1 = time.perf_counter()
+        out = mt.decompress(buf)
+        t2 = time.perf_counter()
+        counts = _build.launch_counts()
+    finally:
+        sk._FUSED = fused
+    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    ratio = v_host.nbytes / len(buf)
+    main_ratio = v_host.nbytes / len(main_buf)
+    log(f"two-pass path: compress {1e3 * (t1 - t0):.3f} ms, decompress "
+        f"{1e3 * (t2 - t1):.3f} ms (host clock); max|v - out| = {err!r} "
+        f"(tolerance {TOL}), ratio {ratio!r} (main path {main_ratio!r}), "
+        f"{len(buf)} bytes, same bytes as the main path {buf == main_buf}; "
+        f"launches {counts}")
+    want = dict(main_counts, gpk_detail=0, gpk_prolong_add=0,
+                **{k: 1 for k in TWO_PASS_KERNELS})
+    if counts != want:
+        raise AssertionError(f"two-pass path launches {counts}, expected "
+                             f"{want}")
+    if out.shape != v_host.shape or not np.isfinite(out).all() \
+            or not err <= TOL:
+        raise AssertionError(f"two-pass path: output {out.shape}, error "
+                             f"{err}")
+    if buf != main_buf:
+        raise AssertionError("two-pass path: the container differs from the "
+                             "main path's")
+    del out
+
+    header, sections = fmt.read_container(buf)
+    comp = compressor_for(header)
+    v = torch.from_numpy(v_host).cuda()
+    exps, words = comp.stream_tensors(header, sections)
+    try:
+        for on in (True, False, False, True):
+            sk._FUSED = on
+            time_device(comp, v, exps, words,
+                        "one-pass (K5/K6)" if on else "two-pass (K7-K10)")
+    finally:
+        sk._FUSED = fused
+    return counts
 
 
 def drive(label, v_host, config, tol=TOL):
@@ -682,13 +827,13 @@ def flat_reference_check(shape=(65, 65, 65), seed=3, tol=1e-3):
                                  f"> {tol}")
 
 
-def reference_check(shape, seed, tol=1e-3):
+def reference_check(shape, seed, tol=1e-3, fused=True):
     """The card against the CPU path at a small shape: the card's pyramid
     agrees with the CPU's, and the containers made on each decode on both
     within the tolerance.  Where the GPK gate admits the finest level,
-    the card's compress goes through K5 and each decode on the card
-    through K6 (the CPU path takes the matmul form); elsewhere neither
-    launches."""
+    the card's compress goes through K5 (K7 and K8 with ``fused`` off)
+    and each decode on the card through K6 (K9 and K10); the CPU path
+    takes the matmul form; elsewhere none of them launches."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import _build
@@ -697,25 +842,33 @@ def reference_check(shape, seed, tol=1e-3):
     v = smooth_field_host(shape, seed=seed)
     cfg = mt.Config(adapt_lossless=False)
     hier = mt.Hierarchy(shape)
-    pg = transform.decompose(hier, torch.from_numpy(v).cuda())
-    pc = transform.decompose(hier, torch.from_numpy(v))
-    rel = max(float((a.cpu() - b).abs().max()) for a, b in zip(pg, pc)) \
-        / float(np.abs(v).max())
-    if not rel <= 1e-5:
-        raise AssertionError(f"card and CPU pyramids differ by {rel}")
-    _build.reset_launches()
-    b_gpu = mt.compress(v, tol, config=cfg)
-    b_cpu = mt.compress(v, tol, config=cfg, device="cpu")
-    errs = [float(np.abs(mt.decompress(b, device=d) - v).max())
-            for b in (b_gpu, b_cpu) for d in ("cuda", "cpu")]
-    counts = _build.launch_counts()
-    k56 = (counts["gpk_detail"], counts["gpk_prolong_add"])
-    log(f"{shape} reference check: pyramid rel diff {rel!r}, cross-decode "
-        f"errors {errs} (card->card, card->CPU, CPU->card, CPU->CPU), "
-        f"same bytes {b_gpu == b_cpu}, K5/K6 launches {k56}")
-    want = (1, 2) if sk.gpk_structure_ok(hier, hier.L) else (0, 0)
-    if k56 != want:
-        raise AssertionError(f"K5/K6 launched {k56} times, expected {want}")
+    old = sk._FUSED
+    try:
+        sk._FUSED = fused
+        pg = transform.decompose(hier, torch.from_numpy(v).cuda())
+        pc = transform.decompose(hier, torch.from_numpy(v))
+        rel = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(pg, pc)) / float(np.abs(v).max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"card and CPU pyramids differ by {rel}")
+        _build.reset_launches()
+        b_gpu = mt.compress(v, tol, config=cfg)
+        b_cpu = mt.compress(v, tol, config=cfg, device="cpu")
+        errs = [float(np.abs(mt.decompress(b, device=d) - v).max())
+                for b in (b_gpu, b_cpu) for d in ("cuda", "cpu")]
+        counts = _build.launch_counts()
+    finally:
+        sk._FUSED = old
+    names = ("gpk_detail", "gpk_prolong_add") + TWO_PASS_KERNELS
+    got = tuple(counts[k] for k in names)
+    want = ((1, 2, 0, 0, 0, 0) if fused else (0, 0, 1, 1, 2, 2)) \
+        if sk.gpk_structure_ok(hier, hier.L) else (0,) * 6
+    log(f"{shape} reference check ({'one' if fused else 'two'}-pass GPK): "
+        f"pyramid rel diff {rel!r}, cross-decode errors {errs} "
+        f"(card->card, card->CPU, CPU->card, CPU->CPU), same bytes "
+        f"{b_gpu == b_cpu}, K5/K6/K7/K8/K9/K10 launches {got}")
+    if got != want:
+        raise AssertionError(f"K5-K10 launched {got} times, expected {want}")
     if not max(errs) <= tol:
         raise AssertionError(f"cross-decode error {max(errs)} > {tol}")
 
@@ -761,6 +914,9 @@ def main() -> int:
 
     with Phase("timing"):
         time_parts(v_host, buf)
+
+    with Phase("two-pass"):
+        two_pass_launches = two_pass_path(v_host, buf, counts)
     del buf
 
     with Phase("flat"):
@@ -775,11 +931,14 @@ def main() -> int:
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
         reference_check((32, 256, 256), seed=2)
+        reference_check((32, 256, 256), seed=2, fused=False)
         flat_reference_check()
 
     # launches: each kernel's count on the path that runs it
     for k in kernels:
         k["launches"] = (flat_counts if k["name"] in FLAT_KERNELS
+                         else two_pass_launches
+                         if k["name"] in TWO_PASS_KERNELS
                          else counts)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

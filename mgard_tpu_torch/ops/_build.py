@@ -47,6 +47,10 @@ _SIGNATURES = {
     "mgard_gpk_detail": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mgard_gpk_prolong_add": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _P),
+    "mgard_b20": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mgard_b1sub": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "mgard_dec_b20": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mgard_dec_b1add": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

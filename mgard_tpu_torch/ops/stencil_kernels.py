@@ -1,4 +1,4 @@
-"""K5/K6: the GPK stencil pair, multilinear interpolation of a level's
+"""The GPK stencil kernels, multilinear interpolation of a level's
 parent grid as per-dim +-1 lerps (the counterpart of
 ``mgard_tpu/ops/stencil_kernels.py``, whose math spec is
 ``mgard_tpu/ops/stencil.py``).
@@ -10,22 +10,36 @@ composition of per-dim 3-point lerps:
     B_d(V)[x] = V[x]                                   x_d parental
               = (1-r)*V[x - e_d] + r*V[x + e_d]        x_d new
 
-    K5  gpk_detail:       detail = A - (B1 o B0 o B2)(A)
-    K6  gpk_prolong_add:  A = (B1 o B0 o B2)(embed C) + detail
+    gpk_detail:       detail = A - (B1 o B0 o B2)(A)
+    gpk_prolong_add:  A = (B1 o B0 o B2)(embed C) + detail
+
+Each runs in one pass by default (K5, K6), or, under
+``MGARD_TPU_GPK_FUSED=0`` as in the JAX package, in two passes through
+an intermediate ``V0`` in device memory, the arithmetic reference the
+one-pass kernels are held bit-identical to:
+
+    K7  run_b20:        V0 = B0(B2(A))                  (n0, n1, n2)
+    K8  run_b1sub:      detail = A - B1(V0)
+    K9  run_dec_b20:    V0 = B0(B2(C embedded in dims 0 and 2))
+                                                        (n0, nc1, n2)
+    K10 run_dec_b1add:  A = B1(V0 embedded in dim 1) + detail
 
 Each B_d only reads positions that are parental in the dims not yet
 processed, which already carry the right partial interpolation; the
 first and the last position of a dim are always parental, so no lerp
-reads across an edge.  The composition order (dim 2, then dim 0, then dim 1) is the JAX
-kernels', on both sides, so that encode and decode run the same lerps.
+reads across an edge.  The composition order (dim 2, then dim 0, then
+dim 1) is the JAX kernels', on both sides, so that encode and decode
+run the same lerps.
 The kernels (``csrc/stencil.cu``) evaluate the lerp tree per output
-element; K6 reads the coarse array ``C`` at its coarse indices, so the
-embedded fine array is never formed.  Each wrapper takes its plain
-PyTorch version for a CPU tensor, launches its kernel for a CUDA tensor
-and raises for anything else.
+element; K6 and K9 read the coarse array ``C`` at its coarse indices,
+so no embedded array is formed.  Each wrapper takes its plain PyTorch
+version for a CPU tensor, launches its kernel for a CUDA tensor and
+raises for anything else.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -34,13 +48,20 @@ from ..hierarchy import Hierarchy
 from . import _build
 
 __all__ = ["gpk_structure_ok", "gpk_supported", "gpk_detail",
-           "gpk_prolong_add", "gpk_detail_plain", "gpk_prolong_add_plain"]
+           "gpk_prolong_add", "gpk_detail_plain", "gpk_prolong_add_plain",
+           "run_b20", "run_b1sub", "run_dec_b20", "run_dec_b1add",
+           "run_b20_plain", "run_b1sub_plain", "run_dec_b20_plain",
+           "run_dec_b1add_plain"]
 
 # The JAX gate's Mosaic tiling (rows of 8 along dim 0, 128 along dim 1
 # and dim 2).  The CUDA kernels need none of it; the port keeps it so
 # that it engages GPK on exactly the levels the TPU does.
 _B0 = 8
 _B1 = 128
+
+# The JAX package's switch, read at import as it reads it: "0" selects the
+# two-pass form (K7-K10) in gpk_detail / gpk_prolong_add.
+_FUSED = os.environ.get("MGARD_TPU_GPK_FUSED", "1") == "1"
 
 
 def _dim_ok_encode(lev) -> bool:
@@ -150,36 +171,81 @@ def _interp_dim(V: torch.Tensor, m: np.ndarray, w: np.ndarray,
     return torch.where(mt != 0, lerp, V)
 
 
-def _b1b0b2(hier: Hierarchy, V: torch.Tensor, l: int) -> torch.Tensor:
+def _interp_dims(hier: Hierarchy, V: torch.Tensor, l: int, dims
+                 ) -> torch.Tensor:
     mw = _mw_arrays(hier, l)
-    for d in (2, 0, 1):
+    for d in dims:
         V = _interp_dim(V, mw[d][0], mw[d][1], d)
+    return V
+
+
+def _embed(hier: Hierarchy, C: torch.Tensor, l: int, dims) -> torch.Tensor:
+    """``C`` placed at the parent positions of ``dims`` (the other dims
+    kept as they are) in an array of zeros."""
+    shape, index = list(C.shape), []
+    for d in range(3):
+        if d in dims:
+            shape[d] = hier.dims[d][l].n
+            i = np.asarray(hier.dims[d][l].coarse_pos)
+        else:
+            i = np.arange(C.shape[d])
+        index.append(torch.as_tensor(i, device=C.device).reshape(
+            [-1 if e == d else 1 for e in range(3)]))
+    V = torch.zeros(shape, dtype=C.dtype, device=C.device)
+    V[tuple(index)] = C
     return V
 
 
 def gpk_detail_plain(hier: Hierarchy, A: torch.Tensor, l: int
                      ) -> torch.Tensor:
     """Plain PyTorch K5: ``A - B1(B0(B2(A)))``."""
-    return A - _b1b0b2(hier, A, l)
+    return A - _interp_dims(hier, A, l, (2, 0, 1))
 
 
 def gpk_prolong_add_plain(hier: Hierarchy, C: torch.Tensor,
                           detail: torch.Tensor, l: int) -> torch.Tensor:
     """Plain PyTorch K6: ``C`` placed at the all-parent positions of a
     zero array, ``B1(B0(B2(.)))``, plus ``detail``."""
-    pos = [torch.as_tensor(np.asarray(hier.dims[d][l].coarse_pos),
-                           device=C.device) for d in range(3)]
-    V = torch.zeros(detail.shape, dtype=C.dtype, device=C.device)
-    V[pos[0][:, None, None], pos[1][None, :, None], pos[2][None, None, :]] \
-        = C
-    return _b1b0b2(hier, V, l) + detail
+    return _interp_dims(hier, _embed(hier, C, l, (0, 1, 2)), l,
+                        (2, 0, 1)) + detail
+
+
+def run_b20_plain(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain PyTorch K7: ``V0 = B0(B2(A))``."""
+    return _interp_dims(hier, A, l, (2, 0))
+
+
+def run_b1sub_plain(hier: Hierarchy, V0: torch.Tensor, A: torch.Tensor,
+                    l: int) -> torch.Tensor:
+    """Plain PyTorch K8: ``A - B1(V0)``."""
+    return A - _interp_dims(hier, V0, l, (1,))
+
+
+def run_dec_b20_plain(hier: Hierarchy, C: torch.Tensor, l: int
+                      ) -> torch.Tensor:
+    """Plain PyTorch K9: ``C`` placed at the parent positions of dims 0
+    and 2, then ``B0(B2(.))``; dim 1 stays coarse: (n0, nc1, n2)."""
+    return _interp_dims(hier, _embed(hier, C, l, (0, 2)), l, (2, 0))
+
+
+def run_dec_b1add_plain(hier: Hierarchy, V0: torch.Tensor,
+                        detail: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain PyTorch K10: ``V0`` placed at the parent positions of dim 1,
+    then ``B1(.)``, plus ``detail``."""
+    return _interp_dims(hier, _embed(hier, V0, l, (1,)), l, (1,)) + detail
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def _check_cuda(name: str, **tensors) -> None:
+    """Each tensor on one CUDA device, contiguous float32 of its shape."""
+    devices = set()
     for arg, (t, shape) in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected the "
@@ -189,18 +255,32 @@ def _check_cuda(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be a contiguous float32 "
                              f"tensor of shape {tuple(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"{name}: the tensors are on "
+                         f"{sorted(map(str, devices))}")
 
 
-def _table_ptrs(hier: Hierarchy, l: int, device):
-    return [t.data_ptr() for wc in _device_tables(hier, l, device)
-            for t in wc]
+def _table_ptrs(hier: Hierarchy, l: int, device, dims=(0, 1, 2)):
+    """Pointers to the (weight, coarse index) tables of ``dims``."""
+    tables = _device_tables(hier, l, device)
+    return [t.data_ptr() for d in dims for t in tables[d]]
+
+
+def _v0_shape(hier: Hierarchy, l: int):
+    """The shape of K9's output: the fine dims 0 and 2, the coarse dim 1."""
+    n0, _, n2 = hier.shapes[l]
+    return (n0, hier.shapes[l - 1][1], n2)
 
 
 @_build.counted
 def gpk_detail(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
     """detail = A - multilinear interpolation of the parents of the dense
-    level-``l`` array ``A``: exact zeros at all-parent nodes."""
-    if A.device.type == "cpu":
+    level-``l`` array ``A``: exact zeros at all-parent nodes.  K5 in one
+    pass; under ``MGARD_TPU_GPK_FUSED=0``, K7 then K8."""
+    if not _FUSED:
+        return run_b1sub(hier, run_b20(hier, A, l), A, l)
+    if _on_cpu(A):
         return gpk_detail_plain(hier, A, l)
     shape = hier.shapes[l]
     _check_cuda("gpk_detail", A=(A, shape))
@@ -211,20 +291,18 @@ def gpk_detail(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
     return out
 
 
-
 @_build.counted
 def gpk_prolong_add(hier: Hierarchy, C: torch.Tensor, detail: torch.Tensor,
                     l: int) -> torch.Tensor:
     """A = multilinear interpolation of the coarse array ``C`` (the parent
-    level's grid) onto level ``l``, plus ``detail``."""
-    if C.device.type == "cpu" and detail.device.type == "cpu":
+    level's grid) onto level ``l``, plus ``detail``.  K6 in one pass;
+    under ``MGARD_TPU_GPK_FUSED=0``, K9 then K10."""
+    if not _FUSED:
+        return run_dec_b1add(hier, run_dec_b20(hier, C, l), detail, l)
+    if _on_cpu(C, detail):
         return gpk_prolong_add_plain(hier, C, detail, l)
     shape, cshape = hier.shapes[l], hier.shapes[l - 1]
-    _check_cuda("gpk_prolong_add", C=(C, cshape),
-                detail=(detail, shape))
-    if C.device != detail.device:
-        raise ValueError("gpk_prolong_add: C and detail are on "
-                         f"{C.device} and {detail.device}")
+    _check_cuda("gpk_prolong_add", C=(C, cshape), detail=(detail, shape))
     out = torch.empty_like(detail)
     _build.launch("mgard_gpk_prolong_add", C.data_ptr(), detail.data_ptr(),
                   out.data_ptr(), *_table_ptrs(hier, l, C.device), *shape,
@@ -232,3 +310,66 @@ def gpk_prolong_add(hier: Hierarchy, C: torch.Tensor, detail: torch.Tensor,
     gpk_prolong_add.launches += 1
     return out
 
+
+@_build.counted
+def run_b20(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
+    """K7: ``V0 = B0(B2(A))``, the first pass of the two-pass detail."""
+    if _on_cpu(A):
+        return run_b20_plain(hier, A, l)
+    shape = hier.shapes[l]
+    _check_cuda("run_b20", A=(A, shape))
+    V0 = torch.empty_like(A)
+    _build.launch("mgard_b20", A.data_ptr(), V0.data_ptr(),
+                  *_table_ptrs(hier, l, A.device, (0, 2)), *shape)
+    run_b20.launches += 1
+    return V0
+
+
+@_build.counted
+def run_b1sub(hier: Hierarchy, V0: torch.Tensor, A: torch.Tensor, l: int
+              ) -> torch.Tensor:
+    """K8: ``detail = A - B1(V0)``, the second pass of the two-pass
+    detail."""
+    if _on_cpu(V0, A):
+        return run_b1sub_plain(hier, V0, A, l)
+    shape = hier.shapes[l]
+    _check_cuda("run_b1sub", V0=(V0, shape), A=(A, shape))
+    out = torch.empty_like(A)
+    _build.launch("mgard_b1sub", V0.data_ptr(), A.data_ptr(), out.data_ptr(),
+                  *_table_ptrs(hier, l, A.device, (1,)), *shape)
+    run_b1sub.launches += 1
+    return out
+
+
+@_build.counted
+def run_dec_b20(hier: Hierarchy, C: torch.Tensor, l: int) -> torch.Tensor:
+    """K9: ``V0 = B0(B2(C embedded in dims 0 and 2))``, (n0, nc1, n2), the
+    first pass of the two-pass prolongation."""
+    if _on_cpu(C):
+        return run_dec_b20_plain(hier, C, l)
+    cshape = hier.shapes[l - 1]
+    _check_cuda("run_dec_b20", C=(C, cshape))
+    vshape = _v0_shape(hier, l)
+    V0 = torch.empty(vshape, dtype=C.dtype, device=C.device)
+    _build.launch("mgard_dec_b20", C.data_ptr(), V0.data_ptr(),
+                  *_table_ptrs(hier, l, C.device, (0, 2)), *vshape,
+                  cshape[2])
+    run_dec_b20.launches += 1
+    return V0
+
+
+@_build.counted
+def run_dec_b1add(hier: Hierarchy, V0: torch.Tensor, detail: torch.Tensor,
+                  l: int) -> torch.Tensor:
+    """K10: ``A = B1(V0 embedded in dim 1) + detail``, the second pass of
+    the two-pass prolongation."""
+    if _on_cpu(V0, detail):
+        return run_dec_b1add_plain(hier, V0, detail, l)
+    shape, vshape = hier.shapes[l], _v0_shape(hier, l)
+    _check_cuda("run_dec_b1add", V0=(V0, vshape), detail=(detail, shape))
+    out = torch.empty_like(detail)
+    _build.launch("mgard_dec_b1add", V0.data_ptr(), detail.data_ptr(),
+                  out.data_ptr(), *_table_ptrs(hier, l, V0.device, (1,)),
+                  *shape, vshape[1])
+    run_dec_b1add.launches += 1
+    return out

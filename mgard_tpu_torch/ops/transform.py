@@ -5,22 +5,23 @@ Per level ``l`` (finest to coarsest), with ``A`` the dense level-``l``
 values:
 
     C       = A restricted to parent nodes         (K1, or gathers)
-    P       = multilinear interpolation of C        (K5, or one matmul
-                                                     per dim)
+    P       = multilinear interpolation of C        (K5, K7+K8, or one
+                                                     matmul per dim)
     detail  = A - P          # zero at parent nodes, coefficients elsewhere
     A_{l-1} = C + K(detail)  # K = M_{l-1}^{-1} R_l M_l, one matmul per dim
 
-``recompose`` runs the exact inverse, with K6 or the matmuls for
-``P + detail``.  The per-dim operators are small dense float64 matrices
+``recompose`` runs the exact inverse, with K6, K9+K10 or the matmuls
+for ``P + detail``.  The per-dim operators are small dense float64 matrices
 built on the host from the hierarchy's tables, cast to the data's dtype
 and applied as tensordots in it: full float32 (no TF32; the package
 turns it off at import), or float64 for float64 data, as the JAX package
 runs it.  As in the JAX package, the interpolation goes through the
 GPK stencil kernels (``ops/stencil_kernels.py``) at every level their
-gate admits; the gate admits only float32 CUDA tensors, so off the card
-the transform takes the matmul form, as the JAX package does off the
-TPU, and float64 data takes it everywhere (K1 is float32 only too, as
-in the JAX package).
+gate admits: the one-pass K5/K6 by default, the two-pass K7-K10 under
+``MGARD_TPU_GPK_FUSED=0`` (the JAX package's switch).  The gate admits
+only float32 CUDA tensors, so off the card the transform takes the
+matmul form, as the JAX package does off the TPU, and float64 data
+takes it everywhere (K1 is float32 only too, as in the JAX package).
 """
 
 from __future__ import annotations
