@@ -7,9 +7,10 @@ Builds the port's CUDA kernels (one ``nvcc`` call), holds each kernel
 against its plain PyTorch version at the shapes of the path that runs
 it, drives each path once through the public API (a 512^3 float32 field
 compressed at an absolute L-infinity tolerance of 1e-3 and decompressed
-again: segmented, with the one-pass GPK kernels and then with the
-two-pass ones; on the flat PYRAMID stream; the default per-group codec
-at 128^3; the 512^3 field as float64), checks every result, and
+again: segmented, with the one-pass GPK kernels, then with the two-pass
+ones, then with the LPK correction; on the flat PYRAMID stream; the
+default per-group codec at 128^3; the 512^3 field as float64), checks
+every result, and
 prints the kernels' JSON line, the card's line and a last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero; without a CUDA device it exits non-zero before doing
@@ -26,15 +27,23 @@ Phases (each prints its wall time):
                  bit-identical to K5 and K10 o K9 to K6; K12 and K11 on
                  the flat PYRAMID stream of the field (with an int32
                  minimum planted in it), and K4 and K11 on a stream with
-                 no words (every exponent 0);
-  3. nonuniform- K5-K10 bit-identical to their plain versions, and the
-                 two-pass compositions to K5/K6, on a grid with random
-                 coordinates: with the weights of 0.5 of a uniform grid
-                 every product is exact, so only such a grid shows a
-                 multiply-add that the compiler contracted;
+                 no words (every exponent 0); K16 and K17 (the segmented
+                 encode's older split, which no path runs) on the main
+                 path's segments, bit-identical, K16's maxima and statuses
+                 equal to K2's and K17 o K16 writing K3's stream (K16
+                 also with a NaN and an overflow planted); K13 on K5's
+                 level-9 detail, bit-identical, with the dense dim-0
+                 SGEMM it replaces timed beside it, and the LPK correction
+                 against the matmul correction within 1e-5 * max|ref|;
+  3. nonuniform- K5-K10 and K13 bit-identical to their plain versions,
+                 and the two-pass compositions to K5/K6, on a grid with
+                 random coordinates: with the weights of 0.5 of a uniform
+                 grid every lerp product is exact, so only such a grid
+                 shows a multiply-add that the compiler contracted;
   4. main path - mgard_tpu_torch.compress / decompress at 512^3 with the
                  launch counters set to 0 just before and read just
-                 after; K1-K6 launch, K5 and K6 once each, K7-K12 not;
+                 after; K1-K6 launch, K5 and K6 once each, K7-K13, K16
+                 and K17 not;
   5. timing    - device encode/decode by CUDA events, with the GPK
                  kernels on and then off (the matmul form), and the host
                  parts by host clock;
@@ -43,19 +52,25 @@ Phases (each prints its wall time):
                  each, K5/K6 not, the same container bytes as the main
                  path; device encode/decode timed in turns with the
                  one-pass kernels;
-  7. flat      - the same field with Config(layout=PYRAMID): the flat
+  7. lpk       - the main path again with transform._LPK on (what
+                 MGARD_TPU_LPK=1 sets at import): K13 twice (decompose
+                 and recompose), the other kernels as on the main path,
+                 the ratio within 1% of the main path's, containers
+                 cross-decoded both ways with the default; device
+                 encode/decode timed in turns with LPK off;
+  8. flat      - the same field with Config(layout=PYRAMID): the flat
                  chunked stream, K12 and K11 once each, K2-K4 not at all;
-  8. per-group - the default Config at 128^3 (under 2^22 values, so the
+  9. per-group - the default Config at 128^3 (under 2^22 values, so the
                  per-group codec; no codec kernel launches);
-  9. float64   - the 512^3 field as float64, default Config: the wide
+ 10. float64   - the 512^3 field as float64, default Config: the wide
                  codec, 2048 groups a chunk, no kernel launches (every
                  kernel is float32 only, as in the JAX package);
- 10. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 11. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
-                 (32, 256, 256) (K5/K6 on the card, then K7-K10): the
-                 pyramids agree and each container decodes on both
-                 within the tolerance;
- 11. summary   - the kernels line, the card line, the ok line.
+                 (32, 256, 256) (K5/K6 on the card, then K7-K10, then
+                 K5/K6 with K13): the pyramids agree and each container
+                 decodes on both within the tolerance;
+ 12. summary   - the kernels line, the card line, the ok line.
 """
 
 from __future__ import annotations
@@ -93,6 +108,13 @@ SEGMENTED_KERNELS = ("extract_coarse_3d", "bp_quant_max", "bp_quant_condense",
 FLAT_KERNELS = ("bp_encode_condense", "bp_decode_condense")
 # The two-pass GPK kernels K7-K10 (stencil_kernels._FUSED off).
 TWO_PASS_KERNELS = ("run_b20", "run_b1sub", "run_dec_b20", "run_dec_b1add")
+# K13, on the LPK path only (transform._LPK on, MGARD_TPU_LPK=1).
+LPK_KERNELS = ("rm_dim0",)
+# K16 and K17, the segmented encode's older split: no path launches them.
+SPLIT_KERNELS = ("bp_quant_zigzag", "bp_condense_into")
+# The tolerance of the LPK correction against the matmul one, relative to
+# max|matmul correction| (tests/test_lpk_kernels.py's).
+LPK_REL_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -275,6 +297,7 @@ def check_kernels(hier, v):
         4 * nvals + 4 * rows * C + 8 * sum(ncs),
         (OPS_QUANT + OPS_BUTTERFLY) * nvals)
     del words_plain
+    check_split_kernels(add, pyr, ncs, C, inv_q, got, words, rows)
 
     stream = words[:rows * C]
 
@@ -292,6 +315,139 @@ def check_kernels(hier, v):
         (OPS_BUTTERFLY + OPS_DEQUANT) * nvals)
     log(f"codec inputs: {len(pyr)} segments, {nvals} values, {sum(ncs)} "
         f"chunks, {rows} stream rows of {C} words")
+    return results
+
+
+def check_split_kernels(add, pyr, ncs, C, inv_q, k2, words, rows):
+    """K16 and K17 against their plain versions on the main path's
+    segments, bit for bit: K16's maxima and statuses equal K2's (``k2``),
+    and K17, fed K16's words at the row offsets of K16's maxima, writes
+    K3's stream ``words`` (``rows`` rows of C words) into one shared
+    buffer.  K16 also on a copy of one segment with a NaN and a value past
+    the int32 range planted, so that status codes 2 and 1 show."""
+    import torch
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
+
+    starts = np.concatenate([[0], np.cumsum(ncs)]).astype(int)
+    nvals = sum(p.numel() for p in pyr)
+    nwords = sum(ncs) * 32 * C
+    before = bk.bp_quant_zigzag.launches
+    zs = [bk.bp_quant_zigzag(p, nc, C, inv_q) for p, nc in zip(pyr, ncs)]
+    launches = [bk.bp_quant_zigzag.launches - before]
+    err = 0.0
+    for p, nc, got in zip(pyr, ncs, zs):
+        want = bk.bp_quant_zigzag_plain(p, nc, C, inv_q)
+        err = max([err] + [max_abs_diff(g, w) for g, w in zip(got, want)])
+        del want
+    if any(not torch.equal(z[1], m[0]) or not torch.equal(z[2], m[1])
+           for z, m in zip(zs, k2)):
+        raise AssertionError("K16's maxima or statuses differ from K2's")
+    planted = pyr[-2].clone()
+    planted[3] = float("nan")
+    planted[32 * C + 5] = 2.0 ** 32 / inv_q
+    nc = ncs[-2]
+    got = bk.bp_quant_zigzag(planted, nc, C, inv_q)
+    want = bk.bp_quant_zigzag_plain(planted, nc, C, inv_q)
+    perr = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    codes = got[2].tolist()
+    log(f"K16 on segment {len(pyr) - 2} with a NaN and 2^32 / inv_q planted: "
+        f"max_abs_err={perr} (tolerance 0), status of its first chunks "
+        f"{codes[:3]}")
+    if codes[:2] != [2, 1] or any(codes[2:]):
+        raise AssertionError(f"K16's statuses on the planted segment: "
+                             f"{codes}")
+    del planted, got, want
+    add("bp_quant_zigzag", "mgard_tpu_torch/csrc/bp_codec.cu",
+        "mgard_tpu/ops/pallas_kernels.py:380", max(err, perr),
+        cuda_ms(lambda: [bk.bp_quant_zigzag(p, nc, C, inv_q)
+                         for p, nc in zip(pyr, ncs)], 5),
+        cuda_ms(lambda: [bk.bp_quant_zigzag_plain(p, nc, C, inv_q)
+                         for p, nc in zip(pyr, ncs)], 2),
+        4 * nvals + 4 * nwords + 8 * sum(ncs), (OPS_QUANT + 1) * nvals)
+
+    e = bitplane._bit_length32(torch.cat([z[1] for z in zs]))
+    offsets = bitplane._offsets(e)
+    if int(e.sum()) != rows:
+        raise AssertionError("K16's exponents differ from K2's")
+    split = torch.zeros_like(words)
+    split_plain = torch.zeros_like(words)
+
+    def k17(fn, buf):
+        for (z, _, _), nc, a in zip(zs, ncs, starts):
+            fn(z, offsets[a:a + nc], e[a:a + nc], buf)
+    before = bk.bp_condense_into.launches
+    k17(bk.bp_condense_into, split)
+    launches.append(bk.bp_condense_into.launches - before)
+    k17(bk.bp_condense_into_plain, split_plain)
+    err = max_abs_diff(split, split_plain)
+    same = torch.equal(split[:rows * C], words[:rows * C])
+    log(f"K17 o K16 over {len(pyr)} segments: the K3 stream of {rows} rows "
+        f"bit for bit {same}; the check launched K16 {launches[0]} and K17 "
+        f"{launches[1]} times (no path launches either)")
+    if not same:
+        raise AssertionError("K17 o K16 does not write K3's stream")
+    del split_plain
+    add("bp_condense_into", "mgard_tpu_torch/csrc/bp_codec.cu",
+        "mgard_tpu/ops/pallas_kernels.py:576", err,
+        cuda_ms(lambda: k17(bk.bp_condense_into, split), 5),
+        cuda_ms(lambda: k17(bk.bp_condense_into_plain, split), 2),
+        4 * nwords + 4 * rows * C + 8 * sum(ncs), OPS_BUTTERFLY * nwords)
+
+
+def rm_counts(hier, l):
+    """Bytes and operations that K13 must move and do at level ``l``: B
+    read once, pad8(nc0) planes written once; 5 products and 4 sums a
+    value of rows 0..fc-1, 4 and 3 of row fc."""
+    n0, n1, n2 = hier.shapes[l]
+    fc = hier.dims[0][l].front_nc
+    nc0p = -(-(fc + 1) // 8) * 8
+    plane = n1 * n2
+    return 4 * (n0 + nc0p) * plane, (9 * fc + 7) * plane
+
+
+def check_lpk(hier, v):
+    """K13 against its plain version on the main path's level-``L``
+    detail (K5's output), over all pad8(nc0) rows; the dense dim-0 SGEMM
+    it replaces timed beside it; and the LPK correction (K13, then
+    [Minv0_pad, K1, K2]) against the matmul correction on that detail."""
+    import torch
+    from mgard_tpu_torch.ops import lpk_kernels as lk
+    from mgard_tpu_torch.ops import stencil_kernels as sk, transform
+
+    l = hier.L
+    det = sk.gpk_detail(hier, v, l)
+    if not lk.rm0_supported(hier, l, det):
+        raise AssertionError(f"the LPK gate refuses level {l}")
+    results = []
+    Y = lk.rm_dim0(hier, det, l)
+    err = max_abs_diff(Y, lk.rm_dim0_plain(hier, det, l))
+    lev = hier.dims[0][l]
+    RM = torch.as_tensor(transform._restriction_matrix_np(lev)
+                         @ transform._mass_matrix_np(lev.h),
+                         dtype=torch.float32, device=v.device)
+    record(results, "rm_dim0", "mgard_tpu_torch/csrc/lpk.cu",
+           "mgard_tpu/ops/lpk_kernels.py:162", err,
+           cuda_ms(lambda: lk.rm_dim0(hier, det, l), 10),
+           cuda_ms(lambda: lk.rm_dim0_plain(hier, det, l), 3),
+           *rm_counts(hier, l),
+           library_ms=cuda_ms(lambda: torch.tensordot(RM, det,
+                                                      dims=([1], [0])), 5))
+    dims = transform._level_dims(hier, l)
+    fast = transform._device_mats(hier, "_corr_fast_mats", l,
+                                  lk.correction_matrices_fast(hier, l), Y)
+    mm = transform._device_mats(hier, "_corr_mats", l,
+                                transform._correction_matrices(hier, l), det)
+    lpk_corr = lambda: transform._apply_matrix_chain(
+        lk.rm_dim0(hier, det, l), fast, dims)
+    mm_corr = lambda: transform._apply_matrix_chain(det, mm, dims)
+    ref = mm_corr()
+    rel = float((lpk_corr() - ref).abs().max()) / float(ref.abs().max())
+    log(f"LPK correction at level {l} against the matmul correction: max "
+        f"abs diff / max|ref| = {rel!r} (tolerance {LPK_REL_TOL}); K13 + "
+        f"[Minv0_pad, K1, K2] {cuda_ms(lpk_corr, 5):.4f} ms, matmul chain "
+        f"{cuda_ms(mm_corr, 5):.4f} ms")
+    if not rel <= LPK_REL_TOL:
+        raise AssertionError(f"the LPK correction differs by {rel}")
     return results
 
 
@@ -481,11 +637,13 @@ def check_stencil(hier, v):
 
 
 def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
-    """K5 and K6 bit-identical to their plain versions on a grid with
-    sorted random coordinates, where the lerp weights are not 0.5."""
+    """K5-K10 and K13 bit-identical to their plain versions on a grid
+    with sorted random coordinates, where the lerp weights are not 0.5
+    and the taps of R M are not those of a uniform grid."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import extract_kernels as xk
+    from mgard_tpu_torch.ops import lpk_kernels as lk
     from mgard_tpu_torch.ops import stencil_kernels as sk
 
     rng = np.random.default_rng(seed)
@@ -508,20 +666,24 @@ def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
                         sk.gpk_prolong_add_plain(hier, C, det, l))
     V0 = sk.run_b20(hier, A, l)
     W = sk.run_dec_b20(hier, C, l)
+    if not lk.rm0_supported(hier, l, A):
+        raise AssertionError(f"the LPK gate refuses level {l} of {shape}")
     errs = {"K5": err5, "K6": err6,
             "K7": max_abs_diff(V0, sk.run_b20_plain(hier, A, l)),
             "K8": max_abs_diff(sk.run_b1sub(hier, V0, A, l),
                                sk.run_b1sub_plain(hier, V0, A, l)),
             "K9": max_abs_diff(W, sk.run_dec_b20_plain(hier, C, l)),
             "K10": max_abs_diff(sk.run_dec_b1add(hier, W, det, l),
-                                sk.run_dec_b1add_plain(hier, W, det, l))}
+                                sk.run_dec_b1add_plain(hier, W, det, l)),
+            "K13": max_abs_diff(lk.rm_dim0(hier, A, l),
+                                lk.rm_dim0_plain(hier, A, l))}
     moved = int((fma_detail(hier, A, l) != plain).sum())
     log(f"nonuniform {shape}: max_abs_err {errs} (tolerance 0); a K5 whose "
         f"lerps were contracted into FMAs would differ at {moved} of "
         f"{plain.numel()} values")
     if any(errs.values()):
-        raise AssertionError("K5-K10 differ from their plain versions on a "
-                             "nonuniform grid")
+        raise AssertionError("K5-K10 or K13 differ from their plain versions "
+                             "on a nonuniform grid")
     if moved == 0:
         raise AssertionError("the nonuniform grid would not show an FMA "
                              "contraction")
@@ -566,7 +728,8 @@ def main_path(v_host):
         f"{1e3 * (t2 - t1):.3f} ms (host clock, H2D and D2H included); "
         f"launches {counts}")
     missing = [k for k in SEGMENTED_KERNELS if counts[k] == 0]
-    extra = [k for k in FLAT_KERNELS + TWO_PASS_KERNELS if counts[k]]
+    extra = [k for k in FLAT_KERNELS + TWO_PASS_KERNELS + LPK_KERNELS
+             + SPLIT_KERNELS if counts[k]]
     if missing or extra:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}; launched off it: {extra}")
@@ -704,6 +867,71 @@ def two_pass_path(v_host, main_buf, main_counts):
     return counts
 
 
+def lpk_path(v_host, main_buf, main_counts):
+    """The main path with ``transform._LPK`` on, set in-process as
+    two_pass_path sets ``_FUSED`` (what MGARD_TPU_LPK=1 sets at import):
+    K13 once in decompose and once in recompose, the other kernels as on
+    the main path; the error bound, the ratio within 1% of the main
+    path's, and containers cross-decoded both ways with the default
+    (``_LPK`` off).  Device encode and decode timed in turns with the
+    default."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.api import compressor_for
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build, transform
+
+    default = transform._LPK
+    try:
+        transform._LPK = True
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        buf = mt.compress(v_host, TOL)
+        t1 = time.perf_counter()
+        out = mt.decompress(buf)
+        t2 = time.perf_counter()
+        counts = _build.launch_counts()
+        cross_on = mt.decompress(main_buf)
+        transform._LPK = False
+        cross_off = mt.decompress(buf)
+    finally:
+        transform._LPK = default
+    errs = [float(np.abs(o.astype(np.float64) - v_host).max())
+            for o in (out, cross_off, cross_on)]
+    ratio = v_host.nbytes / len(buf)
+    main_ratio = v_host.nbytes / len(main_buf)
+    log(f"lpk path: compress {1e3 * (t1 - t0):.3f} ms, decompress "
+        f"{1e3 * (t2 - t1):.3f} ms (host clock); max|v - out| = "
+        f"{errs[0]!r} (tolerance {TOL}), ratio {ratio!r} (main path "
+        f"{main_ratio!r}), {len(buf)} bytes; cross-decode errors {errs[1]!r} "
+        f"(its container, LPK off) and {errs[2]!r} (the main path's, LPK "
+        f"on); launches {counts}")
+    want = dict(main_counts, rm_dim0=2)
+    if counts != want:
+        raise AssertionError(f"lpk path launches {counts}, expected {want}")
+    if out.shape != v_host.shape or not all(
+            np.isfinite(o).all() for o in (out, cross_off, cross_on)) \
+            or not max(errs) <= TOL:
+        raise AssertionError(f"lpk path: output {out.shape}, errors {errs}")
+    if not abs(ratio / main_ratio - 1) <= 0.01:
+        raise AssertionError(f"lpk path: ratio {ratio} is not within 1% of "
+                             f"{main_ratio}")
+    del out, cross_on, cross_off
+
+    header, sections = fmt.read_container(buf)
+    comp = compressor_for(header)
+    v = torch.from_numpy(v_host).cuda()
+    exps, words = comp.stream_tensors(header, sections)
+    try:
+        for on in (True, False, False, True):
+            transform._LPK = on
+            time_device(comp, v, exps, words,
+                        "LPK on (K13)" if on else "LPK off (matmul chain)")
+    finally:
+        transform._LPK = default
+    return counts
+
+
 def drive(label, v_host, config, tol=TOL):
     """One compress / decompress through the API with the launch counters
     set to 0 just before and read just after; the error bound checked,
@@ -775,7 +1003,8 @@ def pergroup_path(shape=(128, 128, 128), seed=SEED):
 
     header, _, counts = drive("per-group path",
                               smooth_field_host(shape, seed), mt.Config())
-    codec = [k for k in SEGMENTED_KERNELS[1:4] + FLAT_KERNELS if counts[k]]
+    codec = [k for k in SEGMENTED_KERNELS[1:4] + FLAT_KERNELS + LPK_KERNELS
+             + SPLIT_KERNELS if counts[k]]
     if header.lossless != int(mt.Lossless.BITPLANE_GROUP) or codec:
         raise AssertionError(f"per-group path: lossless {header.lossless}, "
                              f"codec kernels launched {codec}")
@@ -820,31 +1049,34 @@ def flat_reference_check(shape=(65, 65, 65), seed=3, tol=1e-3):
         log(f"{shape} {label} reference check: cross-decode errors {errs} "
             f"(card->card, card->CPU, CPU->card, CPU->CPU), same bytes "
             f"{b_gpu == b_cpu}, K12/K11 launches {flat}")
-        if flat != ((1, 2) if label == "PYRAMID" else (0, 0)):
-            raise AssertionError(f"{label}: K12/K11 launched {flat}")
+        if flat != ((1, 2) if label == "PYRAMID" else (0, 0)) \
+                or any(counts[k] for k in LPK_KERNELS + SPLIT_KERNELS):
+            raise AssertionError(f"{label}: launches {counts}")
         if not max(errs) <= tol:
             raise AssertionError(f"{label}: cross-decode error {max(errs)} "
                                  f"> {tol}")
 
 
-def reference_check(shape, seed, tol=1e-3, fused=True):
+def reference_check(shape, seed, tol=1e-3, fused=True, lpk=False):
     """The card against the CPU path at a small shape: the card's pyramid
     agrees with the CPU's, and the containers made on each decode on both
     within the tolerance.  Where the GPK gate admits the finest level,
     the card's compress goes through K5 (K7 and K8 with ``fused`` off)
-    and each decode on the card through K6 (K9 and K10); the CPU path
-    takes the matmul form; elsewhere none of them launches."""
+    and each decode on the card through K6 (K9 and K10); with ``lpk``
+    (``transform._LPK`` on) each of them through K13 too where its gate
+    admits the level; the CPU path takes the matmul form; elsewhere none
+    of them launches."""
     import torch
     import mgard_tpu_torch as mt
-    from mgard_tpu_torch.ops import _build
+    from mgard_tpu_torch.ops import _build, lpk_kernels as lk
     from mgard_tpu_torch.ops import stencil_kernels as sk, transform
 
     v = smooth_field_host(shape, seed=seed)
     cfg = mt.Config(adapt_lossless=False)
     hier = mt.Hierarchy(shape)
-    old = sk._FUSED
+    old = sk._FUSED, transform._LPK
     try:
-        sk._FUSED = fused
+        sk._FUSED, transform._LPK = fused, lpk
         pg = transform.decompose(hier, torch.from_numpy(v).cuda())
         pc = transform.decompose(hier, torch.from_numpy(v))
         rel = max(float((a.cpu() - b).abs().max())
@@ -858,17 +1090,21 @@ def reference_check(shape, seed, tol=1e-3, fused=True):
                 for b in (b_gpu, b_cpu) for d in ("cuda", "cpu")]
         counts = _build.launch_counts()
     finally:
-        sk._FUSED = old
-    names = ("gpk_detail", "gpk_prolong_add") + TWO_PASS_KERNELS
+        sk._FUSED, transform._LPK = old
+    names = ("gpk_detail", "gpk_prolong_add") + TWO_PASS_KERNELS \
+        + LPK_KERNELS + SPLIT_KERNELS
     got = tuple(counts[k] for k in names)
     want = ((1, 2, 0, 0, 0, 0) if fused else (0, 0, 1, 1, 2, 2)) \
         if sk.gpk_structure_ok(hier, hier.L) else (0,) * 6
-    log(f"{shape} reference check ({'one' if fused else 'two'}-pass GPK): "
-        f"pyramid rel diff {rel!r}, cross-decode errors {errs} "
-        f"(card->card, card->CPU, CPU->card, CPU->CPU), same bytes "
-        f"{b_gpu == b_cpu}, K5/K6/K7/K8/K9/K10 launches {got}")
+    want += (3 if lpk and lk.rm0_structure_ok(hier, hier.L) else 0, 0, 0)
+    log(f"{shape} reference check ({'one' if fused else 'two'}-pass GPK, "
+        f"LPK {'on' if lpk else 'off'}): pyramid rel diff {rel!r}, "
+        f"cross-decode errors {errs} (card->card, card->CPU, CPU->card, "
+        f"CPU->CPU), same bytes {b_gpu == b_cpu}, K5/K6/K7/K8/K9/K10/K13/"
+        f"K16/K17 launches {got}")
     if got != want:
-        raise AssertionError(f"K5-K10 launched {got} times, expected {want}")
+        raise AssertionError(f"K5-K10, K13, K16, K17 launched {got} times, "
+                             f"expected {want}")
     if not max(errs) <= tol:
         raise AssertionError(f"cross-decode error {max(errs)} > {tol}")
 
@@ -902,7 +1138,7 @@ def main() -> int:
     with Phase("kernels"):
         v = torch.from_numpy(v_host).cuda()
         kernels = check_kernels(hier, v) + check_stencil(hier, v) \
-            + check_flat_kernels(hier, v)
+            + check_flat_kernels(hier, v) + check_lpk(hier, v)
         del v
         torch.cuda.empty_cache()
 
@@ -917,6 +1153,9 @@ def main() -> int:
 
     with Phase("two-pass"):
         two_pass_launches = two_pass_path(v_host, buf, counts)
+
+    with Phase("lpk"):
+        lpk_launches = lpk_path(v_host, buf, counts)
     del buf
 
     with Phase("flat"):
@@ -932,13 +1171,16 @@ def main() -> int:
         reference_check((65, 65, 65), seed=1)
         reference_check((32, 256, 256), seed=2)
         reference_check((32, 256, 256), seed=2, fused=False)
+        reference_check((32, 256, 256), seed=2, lpk=True)
         flat_reference_check()
 
-    # launches: each kernel's count on the path that runs it
+    # launches: each kernel's count on the path that runs it; K16/K17 run
+    # on no path, so theirs is the main path's 0
     for k in kernels:
         k["launches"] = (flat_counts if k["name"] in FLAT_KERNELS
                          else two_pass_launches
                          if k["name"] in TWO_PASS_KERNELS
+                         else lpk_launches if k["name"] in LPK_KERNELS
                          else counts)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,5 @@
-// K2-K4, K11, K12: the chunked bitplane codec (ops/bitplane.py).
+// K2-K4, K11, K12, K16, K17: the chunked bitplane codec
+// (ops/bitplane.py).
 //
 // A segment of n values is cut into chunks of 32*C values; value
 // i*C + g of chunk c sits at row i, column g (values past n read as 0).
@@ -19,10 +20,19 @@
 //   K4 bp_decode_condense_f32   replaces mgard_tpu/ops/pallas_kernels.py:605
 //   K12 bp_encode_condense      replaces mgard_tpu/ops/pallas_kernels.py:293
 //   K11 bp_decode_condense      replaces mgard_tpu/ops/pallas_kernels.py:690
+//   K16 bp_quant_zigzag         replaces mgard_tpu/ops/pallas_kernels.py:371
+//   K17 bp_condense_into        replaces mgard_tpu/ops/pallas_kernels.py:559
 //
 // K2-K4 read and write float32 segments (the PYRAMID_SEG layout, the
 // quantizer fused in); K12 and K11 are K3 and K4 without it, on the flat
-// stream's int32 zigzag words and int32 values.
+// stream's int32 zigzag words and int32 values.  K16 and K17 are the
+// segmented encode's older two-kernel split, which K2 + K3 replaced in
+// both packages and which nothing calls: K16 is K2 that also stores every
+// zigzag word, K17 condenses those words into the shared stream.  In the
+// port's in-place contract K17 computes K12's function (global row
+// offsets into a buffer the caller owns), so its launcher launches K12's
+// kernel; the Pallas kernel's total_rows and buffer aliasing exist only
+// because a JAX array is immutable.
 //
 // The TPU kernels' DMA loops, 33-way switches and SMEM meta packing exist
 // only so that Mosaic issues copies at dynamic offsets; here a thread
@@ -78,6 +88,19 @@ __device__ __forceinline__ uint32_t quant_zigzag(float v, float invq,
   return (static_cast<uint32_t>(q) << 1) ^ static_cast<uint32_t>(q >> 31);
 }
 
+// K16's words: quant_zigzag where the status is 0; where it is not, the
+// word that XLA's saturating float-to-int32 cast gives in the Pallas
+// kernel (NaN -> 0, the int32 maximum or minimum past its range), so that
+// the words equal the JAX kernel's everywhere.  K2 leaves such words out
+// of its maximum; a nonzero status makes the compressor raise either way.
+__device__ __forceinline__ uint32_t quant_zigzag_sat(float v, float invq,
+                                                     int& status) {
+  const uint32_t z = quant_zigzag(v, invq, status);
+  const float xs = __fmul_rn(v, invq);
+  if (__fadd_rn(fabsf(xs), 0.5f) < 2147483648.0f) return z;
+  return isnan(xs) ? 0u : (xs < 0.0f ? 0xFFFFFFFFu : 0xFFFFFFFEu);
+}
+
 __device__ __forceinline__ void load_quant(const float* __restrict__ x,
                                            long long n, size_t base, int C,
                                            float invq, uint32_t (&r)[32],
@@ -127,6 +150,36 @@ __global__ void bp_quant_max_kernel(const float* __restrict__ x, long long n,
     load_quant(x, n, static_cast<size_t>(c) * 32 * C + g, C, invq, r, st);
 #pragma unroll
     for (int i = 0; i < 32; ++i) m = r[i] > m ? r[i] : m;
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  st = __reduce_max_sync(0xffffffffu, st);
+  if ((threadIdx.x & 31) == 0) {
+    if (m) atomicMax(zmax + c, m);
+    if (st) atomicMax(status + c, st);
+  }
+}
+
+// K16: K2's loads, quantizer and per-chunk max and status, plus a store
+// of each word at its own position (coalesced, as the loads are).
+__global__ void bp_quant_zigzag_kernel(const float* __restrict__ x,
+                                       long long n, int C, float invq,
+                                       uint32_t* __restrict__ z,
+                                       uint32_t* __restrict__ zmax,
+                                       int* __restrict__ status) {
+  const int c = blockIdx.x;
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  uint32_t m = 0u;
+  int st = 0;
+  if (g < C) {
+    const size_t base = static_cast<size_t>(c) * 32 * C + g;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const size_t k = base + static_cast<size_t>(i) * C;
+      const float v = k < static_cast<size_t>(n) ? x[k] : 0.0f;
+      const uint32_t w = quant_zigzag_sat(v, invq, st);
+      z[k] = w;
+      m = w > m ? w : m;
+    }
   }
   m = __reduce_max_sync(0xffffffffu, m);
   st = __reduce_max_sync(0xffffffffu, st);
@@ -267,5 +320,27 @@ extern "C" cudaError_t mgard_bp_decode_condense(
   const int threads = codec_threads(C);
   bp_decode_condense_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
                               stream>>>(words, C, offsets, e, out, n);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_quant_zigzag(const float* x, long long n,
+                                             int nchunks, int C, float invq,
+                                             uint32_t* z, uint32_t* zmax,
+                                             int* status,
+                                             cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_quant_zigzag_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
+                           stream>>>(x, n, C, invq, z, zmax, status);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_condense_into(
+    const uint32_t* z, int nchunks, int C, const int* offsets, const int* e,
+    uint32_t* words, cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  const int threads = codec_threads(C);
+  bp_encode_condense_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
+                              stream>>>(z, C, offsets, e, words);
   return cudaGetLastError();
 }

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "mgard_b1sub": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mgard_dec_b20": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mgard_dec_b1add": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mgard_rm_dim0": (_P, _P, _P, _I, _I, _LL, _P),
+    "mgard_bp_quant_zigzag": (_P, _LL, _I, _I, _F, _P, _P, _P, _P),
+    "mgard_bp_condense_into": (_P, _I, _I, _P, _P, _P, _P),
 }
 
 

@@ -1,5 +1,5 @@
-"""K2-K4, K11, K12: the kernels of the chunked bitplane codec, with their
-plain PyTorch versions (the counterpart of
+"""K2-K4, K11, K12, K16, K17: the kernels of the chunked bitplane codec,
+with their plain PyTorch versions (the counterpart of
 ``mgard_tpu/ops/pallas_kernels.py``).
 
 A segment is a float32 tensor of ``n`` values cut into ``nchunks`` chunks
@@ -23,12 +23,23 @@ as int32 values; its two kernels are K3 and K4 without the quantizer:
 * K11 ``bp_decode_condense`` (replaces ``pallas_kernels.py:690``): the
   inverse, unzigzagged to int32.
 
+The segmented encode's older two-kernel split, which K2 + K3 replaced in
+both packages and which no path calls (``chip_smoke.py`` holds it
+against K2 and K3 on the main path's segments):
+
+* K16 ``bp_quant_zigzag`` (replaces ``pallas_kernels.py:371``): K2 that
+  also returns every zigzag word, (nchunks, 32, C).
+* K17 ``bp_condense_into`` (replaces ``pallas_kernels.py:559``): one
+  segment's zigzag words transposed and condensed into the shared stream
+  at global row offsets.
+
 Each wrapper launches its CUDA kernel (``csrc/bp_codec.cu``) for a CUDA
 tensor and counts the launch; it takes the plain version only for a
-tensor on the CPU.  All five are bound by bytes: K2 reads the segment,
+tensor on the CPU.  All seven are bound by bytes: K2 reads the segment,
 K3 and K12 read it and write the stream rows, K4 and K11 read the rows
-and write the values.  The plain versions hold words in int64 (values
-in [0, 2^32)).
+and write the values, K16 reads the segment and writes its words, K17
+reads the words and writes the rows.  The plain versions hold words in
+int64 (values in [0, 2^32)).
 """
 
 from __future__ import annotations
@@ -41,7 +52,9 @@ __all__ = ["bp_quant_max", "bp_quant_condense", "bp_decode_condense_f32",
            "bp_encode_condense", "bp_decode_condense",
            "bp_quant_max_plain", "bp_quant_condense_plain",
            "bp_decode_condense_f32_plain", "bp_encode_condense_plain",
-           "bp_decode_condense_plain", "butterfly", "chunked", "gather_planes",
+           "bp_decode_condense_plain", "bp_quant_zigzag",
+           "bp_condense_into", "bp_quant_zigzag_plain",
+           "bp_condense_into_plain", "butterfly", "chunked", "gather_planes",
            "scatter_planes", "GROUP"]
 
 GROUP = 32
@@ -145,14 +158,19 @@ def _check_chunks(seg, nchunks, C):
 # K2: per-chunk zigzag max + status
 # ---------------------------------------------------------------------------
 
-def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
-    x = chunked(seg, nchunks, C)
+def _chunk_status(x: torch.Tensor, inv_q: float) -> torch.Tensor:
+    """Per-chunk status of float32 chunks (nchunks, 32, C): 2 where a
+    value is not finite, else 1 where one overflows int32, else 0."""
     bad = (~torch.isfinite(x)).flatten(1).any(1)
     xs = x * torch.tensor(inv_q, dtype=torch.float32, device=x.device)
     over = (xs.abs() + 0.5 >= 2.0 ** 31).flatten(1).any(1)
-    status = torch.maximum(2 * bad.to(torch.int32), over.to(torch.int32))
+    return torch.maximum(2 * bad.to(torch.int32), over.to(torch.int32))
+
+
+def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
+    x = chunked(seg, nchunks, C)
     zmax = _quant_zigzag(x, inv_q).flatten(1).amax(1)
-    return _to_i32(zmax), status
+    return _to_i32(zmax), _chunk_status(x, inv_q)
 
 
 @_build.counted
@@ -260,6 +278,14 @@ def _check_stream_args(name, offsets, e, words, nchunks):
         raise ValueError(f"{name}: offsets, e and words must be int32")
 
 
+def _check_condense_args(name, z, offsets, e, words) -> None:
+    if z.dim() != 3 or z.shape[1] != GROUP or z.dtype != torch.int32:
+        raise ValueError(f"{name}: z must be int32 (nchunks, 32, C)")
+    _check_stream_args(name, offsets, e, words, z.shape[0])
+    if words.numel() % z.shape[2]:
+        raise ValueError(f"{name}: the stream must hold whole C-word rows")
+
+
 def bp_encode_condense_plain(z, offsets, e, words) -> None:
     scatter_planes(butterfly(z.long() & _U32, 1), offsets, e, words)
 
@@ -271,12 +297,8 @@ def bp_encode_condense(z: torch.Tensor, offsets: torch.Tensor,
     patterns, (nchunks, 32, C)) into ``words`` (int32, whole C-word rows)
     in place: chunk c's planes 0..e_c-1 at rows ``offsets[c]...``.  The
     caller sizes ``words`` to hold every row they address."""
-    if z.dim() != 3 or z.shape[1] != GROUP or z.dtype != torch.int32:
-        raise ValueError("z must be int32 (nchunks, 32, C)")
+    _check_condense_args("bp_encode_condense", z, offsets, e, words)
     nchunks, _, C = z.shape
-    _check_stream_args("bp_encode_condense", offsets, e, words, nchunks)
-    if words.numel() % C:
-        raise ValueError("the stream must hold whole C-word rows")
     if z.device.type == "cpu":
         return bp_encode_condense_plain(z, offsets, e, words)
     _check_cuda("bp_encode_condense", z, offsets, e, words)
@@ -315,3 +337,76 @@ def bp_decode_condense(words: torch.Tensor, C: int, offsets: torch.Tensor,
                   offsets.data_ptr(), e.data_ptr(), out.data_ptr(), n)
     bp_decode_condense.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K16: quantize + zigzag, keeping the words, with K2's max and status
+# ---------------------------------------------------------------------------
+
+def _quant_zigzag_sat(x: torch.Tensor, inv_q: float) -> torch.Tensor:
+    """:func:`_quant_zigzag` where |x * inv_q| + 0.5 is below 2^31, and
+    elsewhere the word of XLA's saturating int32 cast, as the JAX kernel
+    forms it: 0 for NaN, the int32 maximum's (0xFFFFFFFE) or minimum's
+    (0xFFFFFFFF) past the range."""
+    xs = x * torch.tensor(inv_q, dtype=torch.float32, device=x.device)
+    inside = xs.abs() + 0.5 < 2.0 ** 31
+    sat = torch.where(xs < 0, _U32, _U32 - 1)
+    sat = torch.where(torch.isnan(xs), 0, sat)
+    return torch.where(inside, _quant_zigzag(x, inv_q), sat)
+
+
+def bp_quant_zigzag_plain(seg, nchunks: int, C: int, inv_q: float):
+    x = chunked(seg, nchunks, C)
+    z = _quant_zigzag_sat(x, inv_q)
+    return _to_i32(z), _to_i32(z.flatten(1).amax(1)), _chunk_status(x,
+                                                                   inv_q)
+
+
+@_build.counted
+def bp_quant_zigzag(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
+    """(z int32 (nchunks, 32, C), zmax int32 (nchunks,), status int32
+    (nchunks,)) of one float32 segment scaled by ``inv_q``: the zigzag
+    words (uint32 bit patterns; value ``i*C + g`` of chunk c at
+    ``z[c, i, g]``), each chunk's largest and its status.  Where the
+    status is 0, zmax and status equal :func:`bp_quant_max`'s."""
+    _check_chunks(seg, nchunks, C)
+    if seg.device.type == "cpu":
+        return bp_quant_zigzag_plain(seg, nchunks, C, inv_q)
+    _check_cuda("bp_quant_zigzag", seg)
+    z = torch.empty((nchunks, GROUP, C), dtype=torch.int32,
+                    device=seg.device)
+    zmax = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
+    status = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
+    _build.launch("mgard_bp_quant_zigzag", seg.data_ptr(), seg.numel(),
+                  nchunks, C, float(inv_q), z.data_ptr(), zmax.data_ptr(),
+                  status.data_ptr())
+    bp_quant_zigzag.launches += 1
+    return z, zmax, status
+
+
+# ---------------------------------------------------------------------------
+# K17: transpose + condense one segment's words into the shared stream
+# ---------------------------------------------------------------------------
+
+# K17 computes K12's function on one segment's chunks.
+bp_condense_into_plain = bp_encode_condense_plain
+
+
+@_build.counted
+def bp_condense_into(z: torch.Tensor, offsets: torch.Tensor,
+                     e: torch.Tensor, words: torch.Tensor) -> None:
+    """Write one segment's stream rows into the shared stream ``words``
+    (int32, whole C-word rows) in place: chunk c of the zigzag words
+    ``z`` (int32 (nchunks, 32, C), as :func:`bp_quant_zigzag` gives them)
+    emits its planes 0..e_c-1 at the global rows ``offsets[c]...``.
+    The JAX kernel's ``total_rows`` and its aliased buffer have no
+    counterpart: ``e`` gives each chunk's row count, and the caller owns
+    ``words`` and sizes it to hold every row addressed."""
+    _check_condense_args("bp_condense_into", z, offsets, e, words)
+    nchunks, _, C = z.shape
+    if z.device.type == "cpu":
+        return bp_condense_into_plain(z, offsets, e, words)
+    _check_cuda("bp_condense_into", z, offsets, e, words)
+    _build.launch("mgard_bp_condense_into", z.data_ptr(), nchunks, C,
+                  offsets.data_ptr(), e.data_ptr(), words.data_ptr())
+    bp_condense_into.launches += 1

@@ -22,10 +22,16 @@ gate admits: the one-pass K5/K6 by default, the two-pass K7-K10 under
 only float32 CUDA tensors, so off the card the transform takes the
 matmul form, as the JAX package does off the TPU, and float64 data
 takes it everywhere (K1 is float32 only too, as in the JAX package).
+Under ``MGARD_TPU_LPK=1`` (the JAX package's switch, read at import) the
+correction of a level that ``lpk_kernels.rm0_supported`` admits applies
+its dim-0 ``R_l M_l`` with K13 (``ops/lpk_kernels.py``) and finishes
+with the matmuls ``[M_{l-1}^{-1}, K1, K2]``; decompose and recompose
+take the same branch, so both run the same arithmetic.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import numpy as np
@@ -33,6 +39,7 @@ import torch
 
 from ..hierarchy import DimLevel, Hierarchy
 from . import extract_kernels as xk
+from . import lpk_kernels as lk
 from . import stencil_kernels as sk
 
 __all__ = ["decompose", "recompose", "recompose_to_level"]
@@ -40,6 +47,11 @@ __all__ = ["decompose", "recompose", "recompose_to_level"]
 # Dims up to this size use the dense-matrix operators; longer dims need
 # the tridiagonal-scan path, which is not ported yet.
 _MATMUL_MAX_N = 4096
+
+# The JAX package's switch, read at import as it reads it: "1" applies
+# the dim-0 half of the correction with K13 where its gate admits the
+# level.
+_LPK = os.environ.get("MGARD_TPU_LPK", "0") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -191,10 +203,18 @@ def _prolong_all(hier: Hierarchy, C: torch.Tensor, l: int):
 
 
 def _correction(hier: Hierarchy, detail: torch.Tensor, l: int):
-    """M_{l-1}^{-1} R_l M_l applied to a dense level-l detail array."""
+    """M_{l-1}^{-1} R_l M_l applied to a dense level-l detail array:
+    one dense matmul per dim, or under ``_LPK`` K13 along dim 0 and then
+    the matmuls of ``correction_matrices_fast``."""
+    dims = _level_dims(hier, l)
+    if _LPK and dims == [0, 1, 2] and lk.rm0_supported(hier, l, detail):
+        Y = lk.rm_dim0(hier, detail, l)
+        mats = _device_mats(hier, "_corr_fast_mats", l,
+                            lk.correction_matrices_fast(hier, l), Y)
+        return _apply_matrix_chain(Y, mats, dims)
     mats = _device_mats(hier, "_corr_mats", l,
                         _correction_matrices(hier, l), detail)
-    return _apply_matrix_chain(detail, mats, _level_dims(hier, l))
+    return _apply_matrix_chain(detail, mats, dims)
 
 
 # ---------------------------------------------------------------------------

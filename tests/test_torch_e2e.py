@@ -135,6 +135,7 @@ def test_port_imports_no_jax():
     code = ("import sys, mgard_tpu_torch, mgard_tpu_torch.api, "
             "mgard_tpu_torch.ops.transform, mgard_tpu_torch.ops.bitplane, "
             "mgard_tpu_torch.ops.stencil_kernels, "
+            "mgard_tpu_torch.ops.lpk_kernels, "
             "mgard_tpu_torch.ops.bp_kernels, mgard_tpu_torch.ops.quantize, "
             "mgard_tpu_torch.models.compressor, "
             "mgard_tpu_torch.io.carry, chip_smoke; "
