@@ -3,18 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (one ``nvcc`` call), holds each kernel
-against its plain PyTorch version at the shapes of the path that runs
-it, drives each path once through the public API (a 512^3 float32 field
-compressed at an absolute L-infinity tolerance of 1e-3 and decompressed
-again: segmented, with the one-pass GPK kernels, then with the two-pass
-ones, then with the LPK correction; on the flat PYRAMID stream; the
-default per-group codec at 128^3; the 512^3 field as float64), checks
-every result, and
-prints the kernels' JSON line, the card's line and a last line
-``{"ok": true, "device": {...}}``.  Any failure raises and the script
-exits non-zero; without a CUDA device it exits non-zero before doing
-anything.
+Builds the port's CUDA kernels (one ``nvcc -c`` per source, all at once,
+then one link), holds each kernel against its plain PyTorch version at
+the shapes of the path that runs it, drives each path once through the
+public API (a 512^3 float32 field compressed at an absolute L-infinity
+tolerance of 1e-3 and decompressed again: segmented, with the one-pass
+GPK kernels, then with the two-pass ones, then with the LPK correction;
+on the flat PYRAMID stream; the default per-group codec at 128^3; the
+512^3 field as float64; then with s-norm error control), checks every
+result, and prints the kernels' JSON line, the card's line and a last
+line ``{"ok": true, "device": {...}}``.  Any failure raises and the
+script exits non-zero; without a CUDA device it exits non-zero before
+doing anything.
 
 Phases (each prints its wall time):
   1. setup     - card name and power limit, versions, the kernel build;
@@ -27,7 +27,10 @@ Phases (each prints its wall time):
                  bit-identical to K5 and K10 o K9 to K6; K12 and K11 on
                  the flat PYRAMID stream of the field (with an int32
                  minimum planted in it), and K4 and K11 on a stream with
-                 no words (every exponent 0); K16 and K17 (the segmented
+                 no words (every exponent 0); K14 and K15 (the
+                 sign-magnitude cores, which no path runs) on that planted
+                 stream cut into (32, 128) chunks, bit-identical, K15 o K14
+                 the identity; K16 and K17 (the segmented
                  encode's older split, which no path runs) on the main
                  path's segments, bit-identical, K16's maxima and statuses
                  equal to K2's and K17 o K16 writing K3's stream (K16
@@ -42,8 +45,7 @@ Phases (each prints its wall time):
                  shows a multiply-add that the compiler contracted;
   4. main path - mgard_tpu_torch.compress / decompress at 512^3 with the
                  launch counters set to 0 just before and read just
-                 after; K1-K6 launch, K5 and K6 once each, K7-K13, K16
-                 and K17 not;
+                 after; K1-K6 launch, K5 and K6 once each, K7-K17 not;
   5. timing    - device encode/decode by CUDA events, with the GPK
                  kernels on and then off (the matmul form), and the host
                  parts by host clock;
@@ -65,12 +67,22 @@ Phases (each prints its wall time):
  10. float64   - the 512^3 field as float64, default Config: the wide
                  codec, 2048 groups a chunk, no kernel launches (every
                  kernel is float32 only, as in the JAX package);
- 11. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 11. s-norm    - finite s, each case with its own counters, ratio and
+                 CUDA-event times, and ||v - out||_s <= the recorded
+                 tolerance by the port's norms in float64: 512^3 s = 0
+                 on the default Config (segmented: K11 once per level, K4
+                 never), timed in turns with the L-infinity main path;
+                 512^3 s = 1 on the flat PYRAMID stream (K12/K11 once);
+                 128^3 s = -1 REL 1e-6 (per-group); 256^3 float64 s = 0
+                 (wide);
+ 12. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
                  K5/K6 with K13): the pyramids agree and each container
-                 decodes on both within the tolerance;
- 12. summary   - the kernels line, the card line, the ok line.
+                 decodes on both within the tolerance; with finite s at
+                 65^3 (s = 0) and on a nonuniform (33, 65, 65) grid
+                 (s = 1), segmented, each decode on the card through K11;
+ 13. summary   - the kernels line, the card line, the ok line.
 """
 
 from __future__ import annotations
@@ -110,8 +122,11 @@ FLAT_KERNELS = ("bp_encode_condense", "bp_decode_condense")
 TWO_PASS_KERNELS = ("run_b20", "run_b1sub", "run_dec_b20", "run_dec_b1add")
 # K13, on the LPK path only (transform._LPK on, MGARD_TPU_LPK=1).
 LPK_KERNELS = ("rm_dim0",)
-# K16 and K17, the segmented encode's older split: no path launches them.
+# K16 and K17, the segmented encode's older split, and K14 and K15, the
+# sign-magnitude cores: no path launches them.
 SPLIT_KERNELS = ("bp_quant_zigzag", "bp_condense_into")
+CORE_KERNELS = ("bp_encode_core", "bp_decode_core")
+NO_PATH_KERNELS = SPLIT_KERNELS + CORE_KERNELS
 # The tolerance of the LPK correction against the matmul one, relative to
 # max|matmul correction| (tests/test_lpk_kernels.py's).
 LPK_REL_TOL = 1e-5
@@ -455,7 +470,8 @@ def check_flat_kernels(hier, v):
     """K12 and K11 against their plain versions on the flat PYRAMID
     stream of the main path's field (the stream that Config(layout=
     PYRAMID) encodes), with an int32 minimum planted in it (its zigzag
-    word is 0xFFFFFFFF); then K4 and K11 on a stream with no words."""
+    word is 0xFFFFFFFF); then K4 and K11 on a stream with no words; then
+    K14 and K15 on the same planted stream."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.config import Layout
@@ -504,6 +520,7 @@ def check_flat_kernels(hier, v):
     log(f"flat stream: {n} values, {nc} chunks, {rows} stream rows of {C} "
         f"words, one value set to -2^31")
     del got, stream, words
+    results += check_core_kernels(q)
 
     # no stream words at all (an all-zero field): K4 and K11 read no row
     zero_e = torch.zeros(nc, dtype=torch.int32, device=v.device)
@@ -522,6 +539,51 @@ def check_flat_kernels(hier, v):
                                      f"{words.numel()} words is not zero")
     log(f"empty stream: K4 and K11 give {n} zeros from 0 words and from a "
         f"one-row buffer, as their plain versions do")
+    return results
+
+
+def check_core_kernels(q):
+    """K14 and K15 (the sign-magnitude cores, which no path runs) against
+    their plain versions on the flat stream ``q`` (int32, with -2^31
+    planted), zero-padded to whole (32, 128) chunks: planes, signs and
+    plane counts bit for bit, K15 on K14's output bit for bit, and
+    K15 o K14 the identity."""
+    import torch
+    from mgard_tpu_torch.ops import bp_kernels as bk
+
+    results = []
+    lanes = bk.CORE_LANES
+    nc = -(-q.numel() // (32 * lanes))
+    qc = bk.chunked(q, nc, lanes)
+    nvals = qc.numel()
+    before = (bk.bp_encode_core.launches, bk.bp_decode_core.launches)
+    planes, sign, e = bk.bp_encode_core(qc)
+    out = bk.bp_decode_core(planes, sign)
+    launches = (bk.bp_encode_core.launches - before[0],
+                bk.bp_decode_core.launches - before[1])
+    err14 = max(max_abs_diff(g, w) for g, w in
+                zip((planes, sign, e), bk.bp_encode_core_plain(qc)))
+    err15 = max_abs_diff(out, bk.bp_decode_core_plain(planes, sign))
+    same = torch.equal(out, qc)
+    del out
+    log(f"K14/K15 on {nc} chunks of (32, {lanes}) ({nvals} values, -2^31 "
+        f"planted): K15 o K14 the identity {same}; plane counts "
+        f"{torch.bincount(e, minlength=33).tolist()} (chunks with e = 0 .. "
+        f"32); the check launched K14 {launches[0]} and K15 {launches[1]} "
+        f"times (no path launches either)")
+    if not same:
+        raise AssertionError("K15 o K14 is not the identity")
+    record(results, "bp_encode_core", "mgard_tpu_torch/csrc/bp_codec.cu",
+           "mgard_tpu/ops/pallas_kernels.py:93", err14,
+           cuda_ms(lambda: bk.bp_encode_core(qc), 10),
+           cuda_ms(lambda: bk.bp_encode_core_plain(qc), 2),
+           8 * nvals + 4 * nc * lanes + 4 * nc,
+           (OPS_BUTTERFLY + 4) * nvals)
+    record(results, "bp_decode_core", "mgard_tpu_torch/csrc/bp_codec.cu",
+           "mgard_tpu/ops/pallas_kernels.py:752", err15,
+           cuda_ms(lambda: bk.bp_decode_core(planes, sign), 10),
+           cuda_ms(lambda: bk.bp_decode_core_plain(planes, sign), 2),
+           8 * nvals + 4 * nc * lanes, (OPS_BUTTERFLY + 3) * nvals)
     return results
 
 
@@ -729,7 +791,7 @@ def main_path(v_host):
         f"launches {counts}")
     missing = [k for k in SEGMENTED_KERNELS if counts[k] == 0]
     extra = [k for k in FLAT_KERNELS + TWO_PASS_KERNELS + LPK_KERNELS
-             + SPLIT_KERNELS if counts[k]]
+             + NO_PATH_KERNELS if counts[k]]
     if missing or extra:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}; launched off it: {extra}")
@@ -932,10 +994,13 @@ def lpk_path(v_host, main_buf, main_counts):
     return counts
 
 
-def drive(label, v_host, config, tol=TOL):
+def drive(label, v_host, config, tol=TOL, s=float("inf"), mode="abs"):
     """One compress / decompress through the API with the launch counters
-    set to 0 just before and read just after; the error bound checked,
-    and the device encode and decode timed by CUDA events."""
+    set to 0 just before and read just after; the error bound checked
+    (max|v - out| for s = inf, else ||v - out||_s by the port's norms, in
+    float64 on the card, against the tolerance the container records),
+    and the device encode and decode timed by CUDA events.  Returns the
+    header, the container, the compressor and the counts."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.api import compressor_for
@@ -944,7 +1009,7 @@ def drive(label, v_host, config, tol=TOL):
 
     _build.reset_launches()
     t0 = time.perf_counter()
-    buf = mt.compress(v_host, tol, config=config)
+    buf = mt.compress(v_host, tol, s=s, mode=mode, config=config)
     t1 = time.perf_counter()
     out = mt.decompress(buf)
     t2 = time.perf_counter()
@@ -953,30 +1018,33 @@ def drive(label, v_host, config, tol=TOL):
         raise AssertionError(f"{label}: output {out.shape} {out.dtype}")
     if not np.isfinite(out).all():
         raise AssertionError(f"{label}: non-finite output")
-    err = float(np.abs(out.astype(np.float64) - v_host).max())
-    del out
     header, sections = fmt.read_container(buf)
     comp = compressor_for(header)
+    linf = float(np.abs(out.astype(np.float64) - v_host).max())
+    err = linf if np.isinf(s) else snorm_error(comp.hier, out, v_host, s)
+    del out
+    bound = header.tolerance
     v = torch.from_numpy(v_host).cuda()
-    enc_ms = cuda_ms(lambda: comp.encode_device(v, tol), 3)
+    enc_ms = cuda_ms(lambda: comp.encode_device(v, bound), 3)
     exps, words = comp.stream_tensors(header, sections)
     dec_ms = cuda_ms(lambda: comp.decode_device(
-        exps, words, tol, mt.Lossless(header.lossless)), 3)
+        exps, words, bound, mt.Lossless(header.lossless)), 3)
     del v, exps, words
     torch.cuda.empty_cache()
     gb = v_host.nbytes / 1e9
+    norm = "" if np.isinf(s) else f"||v - out||_s = {err!r} (s = {s}), "
     log(f"{label}: {v_host.shape} {v_host.dtype}, lossless "
         f"{mt.Lossless(header.lossless).name}, chunk groups "
         f"{comp.chunk_groups}, {len(buf)} bytes, ratio "
-        f"{v_host.nbytes / len(buf)!r}, max|v - out| = {err!r} (tolerance "
-        f"{tol}); API compress {1e3 * (t1 - t0):.3f} ms, decompress "
-        f"{1e3 * (t2 - t1):.3f} ms (host clock); device encode "
-        f"{enc_ms:.3f} ms ({gb / enc_ms * 1e3:.2f} GB/s), decode "
-        f"{dec_ms:.3f} ms ({gb / dec_ms * 1e3:.2f} GB/s) (CUDA events); "
-        f"launches {counts}")
-    if not err <= tol:
-        raise AssertionError(f"{label}: error {err} exceeds {tol}")
-    return header, comp, counts
+        f"{v_host.nbytes / len(buf)!r}, {norm}max|v - out| = {linf!r} "
+        f"({mode} tolerance {tol}, bound {bound!r}); API compress "
+        f"{1e3 * (t1 - t0):.3f} ms, decompress {1e3 * (t2 - t1):.3f} ms "
+        f"(host clock); device encode {enc_ms:.3f} ms "
+        f"({gb / enc_ms * 1e3:.2f} GB/s), decode {dec_ms:.3f} ms "
+        f"({gb / dec_ms * 1e3:.2f} GB/s) (CUDA events); launches {counts}")
+    if not err <= bound:
+        raise AssertionError(f"{label}: error {err} exceeds {bound}")
+    return header, buf, comp, counts
 
 
 def flat_path(v_host, main_counts):
@@ -985,8 +1053,8 @@ def flat_path(v_host, main_counts):
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.config import Layout
 
-    header, _, counts = drive("flat path", v_host,
-                              mt.Config(layout=Layout.PYRAMID))
+    header, _, _, counts = drive("flat path", v_host,
+                                 mt.Config(layout=Layout.PYRAMID))
     want = dict(main_counts, bp_quant_max=0, bp_quant_condense=0,
                 bp_decode_condense_f32=0, bp_encode_condense=1,
                 bp_decode_condense=1)
@@ -1001,10 +1069,10 @@ def pergroup_path(shape=(128, 128, 128), seed=SEED):
     PyTorch on the card as the JAX package's is XLA."""
     import mgard_tpu_torch as mt
 
-    header, _, counts = drive("per-group path",
-                              smooth_field_host(shape, seed), mt.Config())
+    header, _, _, counts = drive("per-group path",
+                                 smooth_field_host(shape, seed), mt.Config())
     codec = [k for k in SEGMENTED_KERNELS[1:4] + FLAT_KERNELS + LPK_KERNELS
-             + SPLIT_KERNELS if counts[k]]
+             + NO_PATH_KERNELS if counts[k]]
     if header.lossless != int(mt.Lossless.BITPLANE_GROUP) or codec:
         raise AssertionError(f"per-group path: lossless {header.lossless}, "
                              f"codec kernels launched {codec}")
@@ -1015,8 +1083,8 @@ def float64_path(v_host):
     (2048 groups a chunk), the transform in float64 matmuls, no kernel."""
     import mgard_tpu_torch as mt
 
-    header, comp, counts = drive("float64 path", v_host.astype(np.float64),
-                                 mt.Config())
+    header, _, comp, counts = drive("float64 path",
+                                    v_host.astype(np.float64), mt.Config())
     launched = {k: n for k, n in counts.items() if n}
     if header.lossless != int(mt.Lossless.BITPLANE) \
             or (header.chunk_groups or 2048) != 2048 \
@@ -1024,6 +1092,118 @@ def float64_path(v_host):
         raise AssertionError(f"float64 path: lossless {header.lossless}, "
                              f"chunk groups {header.chunk_groups}, "
                              f"launches {launched}")
+
+
+def snorm_error(hier, out, v_host, s) -> float:
+    """||v - out||_s by the port's norms, in float64 on the card."""
+    import torch
+    from mgard_tpu_torch.ops import norms
+
+    u = torch.from_numpy(out).cuda().double()
+    u -= torch.from_numpy(v_host).cuda().double()
+    err = float(norms.norm(hier, u, s))
+    del u
+    torch.cuda.empty_cache()
+    return err
+
+
+def snorm_paths(v_host, main_buf, main_counts):
+    """Finite s through the API: 512^3 s = 0 on the default Config (the
+    segmented stream: K2/K3 on the scaled levels, K11 once per level, K4
+    never), timed in turns with the L-infinity main path; 512^3 s = 1 on
+    Config(layout=PYRAMID) (K12/K11 once each); 128^3 s = -1 REL 1e-6
+    (1e-6 * sqrt(sum v^2)) on the default Config (per-group, no codec
+    kernel); 256^3 float64 s = 0 (the wide codec, no kernel)."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.api import compressor_for
+    from mgard_tpu_torch.config import Layout
+    from mgard_tpu_torch.io import format as fmt
+
+    nseg = mt.Hierarchy(SHAPE).L + 1
+    _, buf, _, counts = drive("s-norm path", v_host, mt.Config(), s=0.0)
+    want = dict(main_counts, bp_decode_condense_f32=0,
+                bp_decode_condense=nseg)
+    if counts != want:
+        raise AssertionError(f"s-norm path launches {counts}, expected "
+                             f"{want}")
+    # device encode / decode in turns with the L-infinity main path
+    comps = {}
+    for label, b in (("L-infinity", main_buf), ("s = 0", buf)):
+        header, sections = fmt.read_container(b)
+        comp = compressor_for(header)
+        comps[label] = (comp, *comp.stream_tensors(header, sections))
+    v = torch.from_numpy(v_host).cuda()
+    for label in ("L-infinity", "s = 0", "s = 0", "L-infinity"):
+        comp, exps, words = comps[label]
+        time_device(comp, v, exps, words, f"turn {label}")
+    del v, comps
+    torch.cuda.empty_cache()
+
+    _, _, _, counts = drive("s-norm flat path", v_host,
+                            mt.Config(layout=Layout.PYRAMID), s=1.0)
+    want = dict(main_counts, bp_quant_max=0, bp_quant_condense=0,
+                bp_decode_condense_f32=0, bp_encode_condense=1,
+                bp_decode_condense=1)
+    if counts != want:
+        raise AssertionError(f"s-norm flat path launches {counts}, "
+                             f"expected {want}")
+
+    header, _, _, counts = drive(
+        "s-norm per-group path", smooth_field_host((128, 128, 128)),
+        mt.Config(), tol=1e-6, s=-1.0, mode="rel")
+    codec = [k for k in SEGMENTED_KERNELS[1:4] + FLAT_KERNELS
+             + NO_PATH_KERNELS if counts[k]]
+    if header.lossless != int(mt.Lossless.BITPLANE_GROUP) or codec:
+        raise AssertionError(f"s-norm per-group path: lossless "
+                             f"{header.lossless}, codec kernels {codec}")
+
+    header, _, _, counts = drive(
+        "s-norm float64 path", smooth_field_host((256, 256, 256), seed=1
+                                                 ).astype(np.float64),
+        mt.Config(), s=0.0)
+    launched = {k: n for k, n in counts.items() if n}
+    if header.lossless != int(mt.Lossless.BITPLANE) or launched:
+        raise AssertionError(f"s-norm float64 path: lossless "
+                             f"{header.lossless}, launches {launched}")
+
+
+def snorm_reference_check(shape, seed, s, uniform=True, tol=1e-3):
+    """Card against CPU with finite ``s`` on the segmented stream
+    (adapt_lossless=False): the containers made on each decode on both
+    within ||v - out||_s <= tol; each decode on the card launches K11
+    once per level and K4 never."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import _build
+
+    coords = None
+    if not uniform:
+        rng = np.random.default_rng(seed)
+        coords = []
+        for n in shape:
+            c = np.sort(rng.uniform(size=n))
+            c[0], c[-1] = 0.0, 1.0
+            coords.append(c)
+    hier = mt.Hierarchy(shape, coordinates=coords)
+    v = smooth_field_host(shape, seed=seed)
+    cfg = mt.Config(adapt_lossless=False)
+    _build.reset_launches()
+    b_gpu = mt.compress(v, tol, s=s, config=cfg, coordinates=coords)
+    b_cpu = mt.compress(v, tol, s=s, config=cfg, coordinates=coords,
+                        device="cpu")
+    errs = [snorm_error(hier, mt.decompress(b, device=d), v, s)
+            for b in (b_gpu, b_cpu) for d in ("cuda", "cpu")]
+    counts = _build.launch_counts()
+    got = (counts["bp_decode_condense"], counts["bp_decode_condense_f32"])
+    log(f"{shape} {'uniform' if uniform else 'nonuniform'} s = {s} reference "
+        f"check: cross-decode ||v - out||_s {errs} (card->card, card->CPU, "
+        f"CPU->card, CPU->CPU), same bytes {b_gpu == b_cpu}, K11/K4 "
+        f"launches {got}")
+    if got != (2 * (hier.L + 1), 0):
+        raise AssertionError(f"s = {s}: K11/K4 launched {got} times")
+    if not max(errs) <= tol:
+        raise AssertionError(f"s = {s}: cross-decode error {max(errs)} > "
+                             f"{tol}")
 
 
 def flat_reference_check(shape=(65, 65, 65), seed=3, tol=1e-3):
@@ -1050,7 +1230,7 @@ def flat_reference_check(shape=(65, 65, 65), seed=3, tol=1e-3):
             f"(card->card, card->CPU, CPU->card, CPU->CPU), same bytes "
             f"{b_gpu == b_cpu}, K12/K11 launches {flat}")
         if flat != ((1, 2) if label == "PYRAMID" else (0, 0)) \
-                or any(counts[k] for k in LPK_KERNELS + SPLIT_KERNELS):
+                or any(counts[k] for k in LPK_KERNELS + NO_PATH_KERNELS):
             raise AssertionError(f"{label}: launches {counts}")
         if not max(errs) <= tol:
             raise AssertionError(f"{label}: cross-decode error {max(errs)} "
@@ -1127,8 +1307,11 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)}")
         _build.build()
         _build.lib()
-        log(f"kernel build: {_build.build_seconds:.2f} s "
-            f"({' '.join(_build.build_command(_build.LIB_PATH))})")
+        srcs = _build.sources()
+        log(f"kernel build: {_build.build_seconds:.2f} s, {len(srcs)} "
+            f"sources compiled in parallel "
+            f"({' '.join(_build.compile_command(srcs[0], 'x.o'))} ...), "
+            f"then one link")
 
     with Phase("data"):
         v_host = smooth_field_host(SHAPE)
@@ -1156,7 +1339,6 @@ def main() -> int:
 
     with Phase("lpk"):
         lpk_launches = lpk_path(v_host, buf, counts)
-    del buf
 
     with Phase("flat"):
         flat_counts = flat_path(v_host, counts)
@@ -1167,12 +1349,18 @@ def main() -> int:
     with Phase("float64"):
         float64_path(v_host)
 
+    with Phase("s-norm"):
+        snorm_paths(v_host, buf, counts)
+    del buf
+
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
         reference_check((32, 256, 256), seed=2)
         reference_check((32, 256, 256), seed=2, fused=False)
         reference_check((32, 256, 256), seed=2, lpk=True)
         flat_reference_check()
+        snorm_reference_check((65, 65, 65), seed=4, s=0.0)
+        snorm_reference_check((33, 65, 65), seed=5, s=1.0, uniform=False)
 
     # launches: each kernel's count on the path that runs it; K16/K17 run
     # on no path, so theirs is the main path's 0

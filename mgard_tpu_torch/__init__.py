@@ -1,8 +1,8 @@
 """mgard_tpu_torch: the PyTorch/CUDA port of mgard_tpu.
 
 An error-bounded lossy compressor for N-D float32 and float64 arrays
-(MGARD's multilevel decomposition, L-infinity error control, bitplane
-codecs), running on an NVIDIA H100 with hand-written CUDA kernels for its hot
+(MGARD's multilevel decomposition, L-infinity and s-norm error
+control, bitplane codecs), running on an NVIDIA H100 with hand-written CUDA kernels for its hot
 loops.  It writes and reads the same containers as the JAX package.
 
 Importing the package loads no CUDA code: the kernels are built with

@@ -111,8 +111,11 @@ def compress(data, tolerance: float, s: float = math.inf,
              coordinates: Optional[Sequence[np.ndarray]] = None,
              config: Optional[Config] = None, device=None) -> bytes:
     """Compress a float32 or float64 array (numpy or torch) with a
-    guaranteed L-infinity error bound ``tolerance`` (absolute, or
-    relative to max|data| with ``mode="rel"``)."""
+    guaranteed error bound ``tolerance``: ``max|data - out|`` for ``s =
+    inf``, else the s-norm ``||data - out||_s`` (``s = 0`` the L2 norm on
+    the grid, see ``ops/norms.py``).  ``mode="rel"`` scales the
+    tolerance by ``max|data|`` (``s = inf``) or by ``sqrt(sum data^2)``
+    (finite ``s``)."""
     dev = resolve_device(device)
     if isinstance(data, torch.Tensor):
         shape, dtype = tuple(data.shape), np.dtype(

@@ -1,4 +1,4 @@
-// K2-K4, K11, K12, K16, K17: the chunked bitplane codec
+// K2-K4, K11, K12, K14-K17: the chunked bitplane codec
 // (ops/bitplane.py).
 //
 // A segment of n values is cut into chunks of 32*C values; value
@@ -12,7 +12,7 @@
 // Every kernel maps one thread to one column g of one chunk: the thread
 // keeps its 32 words in registers, the 5-stage butterfly transposes them
 // there, and the loads and stores of a warp touch 32 consecutive words
-// of one row, so all global traffic is coalesced.  All five are bound
+// of one row, so all global traffic is coalesced.  All of them are bound
 // by bytes (a few integer operations per byte moved).
 //
 //   K2 bp_quant_max             replaces mgard_tpu/ops/pallas_kernels.py:527
@@ -22,6 +22,8 @@
 //   K11 bp_decode_condense      replaces mgard_tpu/ops/pallas_kernels.py:690
 //   K16 bp_quant_zigzag         replaces mgard_tpu/ops/pallas_kernels.py:371
 //   K17 bp_condense_into        replaces mgard_tpu/ops/pallas_kernels.py:559
+//   K14 bp_encode_core          replaces mgard_tpu/ops/pallas_kernels.py:83
+//   K15 bp_decode_core          replaces mgard_tpu/ops/pallas_kernels.py:742
 //
 // K2-K4 read and write float32 segments (the PYRAMID_SEG layout, the
 // quantizer fused in); K12 and K11 are K3 and K4 without it, on the flat
@@ -33,6 +35,11 @@
 // offsets into a buffer the caller owns), so its launcher launches K12's
 // kernel; the Pallas kernel's total_rows and buffer aliasing exist only
 // because a JAX array is immutable.
+//
+// K14 and K15 are the sign-magnitude cores, transpose only: a chunk is
+// (32, 128) int32 values, no offsets and no condense.  K14 writes all 32
+// magnitude planes, one sign word per column and the chunk's plane count;
+// K15 inverts it.  No path of either package calls them.
 //
 // The TPU kernels' DMA loops, 33-way switches and SMEM meta packing exist
 // only so that Mosaic issues copies at dynamic offsets; here a thread
@@ -46,6 +53,9 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// Columns of a K14/K15 chunk: the JAX kernels' 128-lane blocks.
+constexpr int kCoreLanes = 128;
 
 template <int SH, uint32_t MASK>
 __device__ __forceinline__ void butterfly_step(uint32_t (&r)[32]) {
@@ -262,6 +272,66 @@ __global__ void bp_decode_condense_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// K14: one block of 128 threads per chunk, one thread per column.  The
+// magnitude of a negative value is 0u - (uint32_t)q, which is 0x80000000
+// for the int32 minimum (what jnp.abs then astype(uint32) gives; abs()
+// of it is undefined in C).  Each thread ORs a mask of its non-zero
+// planes; a warp reduce and four words of shared memory give the chunk's.
+__global__ void __launch_bounds__(kCoreLanes)
+bp_encode_core_kernel(const int* __restrict__ q,
+                      uint32_t* __restrict__ planes,
+                      uint32_t* __restrict__ sign, int* __restrict__ e) {
+  __shared__ uint32_t warp_masks[kCoreLanes / 32];
+  const int g = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * 32 * kCoreLanes + g;
+  uint32_t r[32];
+  uint32_t s = 0u;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int v = q[base + static_cast<size_t>(i) * kCoreLanes];
+    r[i] = v < 0 ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
+    s |= static_cast<uint32_t>(v < 0) << i;
+  }
+  butterfly(r);
+  uint32_t mask = 0u;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    planes[base + static_cast<size_t>(b) * kCoreLanes] = r[b];
+    mask |= static_cast<uint32_t>(r[b] != 0u) << b;
+  }
+  sign[static_cast<size_t>(blockIdx.x) * kCoreLanes + g] = s;
+  mask = __reduce_or_sync(0xffffffffu, mask);
+  if ((g & 31) == 0) warp_masks[g >> 5] = mask;
+  __syncthreads();
+  if (g == 0) {
+    uint32_t m = 0u;
+#pragma unroll
+    for (int w = 0; w < kCoreLanes / 32; ++w) m |= warp_masks[w];
+    e[blockIdx.x] = 32 - __clz(m);
+  }
+}
+
+// K15: the inverse; the negation wraps in uint32_t before the cast.
+__global__ void __launch_bounds__(kCoreLanes)
+bp_decode_core_kernel(const uint32_t* __restrict__ planes,
+                      const uint32_t* __restrict__ sign,
+                      int* __restrict__ out) {
+  const int g = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * 32 * kCoreLanes + g;
+  uint32_t r[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    r[b] = planes[base + static_cast<size_t>(b) * kCoreLanes];
+  }
+  butterfly(r);
+  const uint32_t s = sign[static_cast<size_t>(blockIdx.x) * kCoreLanes + g];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const uint32_t m = ((s >> i) & 1u) ? 0u - r[i] : r[i];
+    out[base + static_cast<size_t>(i) * kCoreLanes] = static_cast<int>(m);
+  }
+}
+
 dim3 codec_grid(int nchunks, int C, int threads) {
   return dim3(nchunks, (C + threads - 1) / threads);
 }
@@ -342,5 +412,23 @@ extern "C" cudaError_t mgard_bp_condense_into(
   const int threads = codec_threads(C);
   bp_encode_condense_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
                               stream>>>(z, C, offsets, e, words);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_encode_core(const int* q, int nchunks,
+                                            uint32_t* planes, uint32_t* sign,
+                                            int* e, cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  bp_encode_core_kernel<<<nchunks, kCoreLanes, 0, stream>>>(q, planes, sign,
+                                                            e);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t mgard_bp_decode_core(const uint32_t* planes,
+                                            const uint32_t* sign, int nchunks,
+                                            int* out, cudaStream_t stream) {
+  if (nchunks <= 0) return cudaSuccess;
+  bp_decode_core_kernel<<<nchunks, kCoreLanes, 0, stream>>>(planes, sign,
+                                                            out);
   return cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """The low-level compressor pipeline for one device and one domain: the
-port of the MULTIDIM L-infinity branches of
-``mgard_tpu/models/compressor.py``.
+port of the MULTIDIM branches of ``mgard_tpu/models/compressor.py``,
+with L-infinity (``s = inf``) or s-norm (finite ``s``) error control.
 
     decompose -> quantize + bitplane encode -> container sections
 
@@ -8,7 +8,10 @@ Two routes, chosen as the JAX package chooses them:
 
 * **segmented** (the PYRAMID_SEG layout with a chunked lossless on
   float32 data): ``bitplane.encode_segments`` quantizes each pyramid
-  level inside the codec kernels (K2-K4);
+  level inside the codec kernels (K2-K4).  With finite s the levels are
+  scaled by their per-node inverse quanta first (``scale_pyramid``) and
+  the kernels multiply by 1.0; the decode returns int32 levels (K11 per
+  level), which ``dequantize_pyramid`` scales back;
 * **flat** (everything else the port has): ``_quantized_flat`` scales,
   concatenates and rounds the pyramid into one integer stream, which
   one of three codecs encodes: the chunked ``bitplane.encode`` (K12,
@@ -21,8 +24,8 @@ stream and assembles the container.  A round trip syncs with the device
 three times: the status and word count, the stream's read-back, and the
 decoded array's ``.cpu()``.
 
-Branches of the JAX package that the port does not have yet (finite s,
-the FINE and LEVEL_BLOCKS layouts, the SINGLEDIM and HYBRID
+Branches of the JAX package that the port does not have yet (the FINE
+and LEVEL_BLOCKS layouts, the SINGLEDIM and HYBRID
 decompositions, the host losslesses, the zstd/LZ4 second stages) raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
@@ -121,9 +124,6 @@ class Compressor:
         return "grouped" if lossless.grouped else "chunked"
 
     def _check_ported(self, lossless: Lossless) -> None:
-        if not math.isinf(self.s):
-            raise _not_ported("s-norm error control (finite s)",
-                              "queue A, item 3")
         if self.config.decomposition != Decomposition.MULTIDIM:
             raise _not_ported(f"the {self.config.decomposition.name} "
                               "decomposition", "queue A, item 1")
@@ -183,8 +183,11 @@ class Compressor:
         C = self.chunk_groups
         if codec == "segmented":
             pyr = transform.decompose(self.hier, v)
+            if math.isinf(self.s):
+                return bitplane.encode_segments(
+                    pyr, float(inverse_quantum(self.hier, abs_tol)), C=C)
             return bitplane.encode_segments(
-                pyr, float(inverse_quantum(self.hier, abs_tol)), C=C)
+                scale_pyramid(self.hier, pyr, self.s, abs_tol), 1.0, C=C)
         flat, status = self._quantized_flat(v, abs_tol)
         if codec == "wide":
             out = bitplane.encode64(flat, C=C)
@@ -204,11 +207,16 @@ class Compressor:
         codec = self._codec(lossless)
         C = self.chunk_groups
         if codec == "segmented":
-            q = float(supremum_quantum(self.hier, abs_tol))
+            finite = not math.isinf(self.s)
+            q = None if finite \
+                else float(supremum_quantum(self.hier, abs_tol))
             segs = bitplane.decode_segments(exponents, words,
                                             self._seg_sizes, quantum=q, C=C)
-            pyr = [s.reshape(self.hier.shapes[l])
-                   for l, s in enumerate(segs)]
+            pyr = [seg.reshape(self.hier.shapes[l])
+                   for l, seg in enumerate(segs)]
+            if finite:
+                pyr = dequantize_pyramid(self.hier, pyr, self.s, abs_tol,
+                                         self.dtype)
             return transform.recompose(self.hier, pyr)
         if codec == "wide":
             flat = bitplane.decode64(exponents, words, self._nstream, C=C)
@@ -251,6 +259,15 @@ class Compressor:
                              f"{tuple(t.shape)}")
         return t
 
+    def norm(self, v: torch.Tensor) -> torch.Tensor:
+        """The norm that REL mode scales the tolerance by
+        (``compressor.py:389``): max|v| for L-infinity control, else the
+        root of the sum of squares, summed in float64 and cast to the
+        data's dtype."""
+        if math.isinf(self.s):
+            return v.abs().max()
+        return torch.sqrt(torch.sum(v.double() ** 2)).to(v.dtype)
+
     def compress(self, v, tolerance: float,
                  mode: ErrorMode = ErrorMode.ABS) -> bytes:
         self._check_ported(self.lossless)
@@ -258,7 +275,7 @@ class Compressor:
         norm = 1.0
         abs_tol = float(tolerance)
         if mode == ErrorMode.REL:
-            norm = float(v.abs().max())
+            norm = float(self.norm(v))
             abs_tol = float(tolerance) * norm
         sections = self.sections_from_outputs(
             *self.encode_device(v, abs_tol))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 All kernel sources (``mgard_tpu_torch/csrc/*.cu``) have a plain
-``extern "C"`` interface, so one ``nvcc`` call builds them into one
-shared library, loaded with :mod:`ctypes`.  No PyTorch headers, no
+``extern "C"`` interface, so ``nvcc`` compiles them, one process per
+source, all started at once, and links them into one shared library,
+loaded with :mod:`ctypes`.  No PyTorch headers, no
 ``torch.utils.cpp_extension``, no ``ninja``: the build takes seconds.
 
 The library goes into ``mgard_tpu_torch/_build/`` (git-ignored) at first
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "mgard_rm_dim0": (_P, _P, _P, _I, _I, _LL, _P),
     "mgard_bp_quant_zigzag": (_P, _LL, _I, _I, _F, _P, _P, _P, _P),
     "mgard_bp_condense_into": (_P, _I, _I, _P, _P, _P, _P),
+    "mgard_bp_encode_core": (_P, _I, _P, _P, _P, _P),
+    "mgard_bp_decode_core": (_P, _P, _I, _P, _P),
 }
 
 
@@ -73,10 +76,14 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def build_command(out: Path):
-    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", str(out),
-            *(str(s) for s in sources())]
+def compile_command(src: Path, obj: Path):
+    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+            "-fPIC", "-c", "-o", str(obj), str(src)]
+
+
+def link_command(out: Path, objs):
+    return [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(out),
+            *(str(o) for o in objs)]
 
 
 def _stale() -> bool:
@@ -86,19 +93,40 @@ def _stale() -> bool:
     return any(s.stat().st_mtime > built for s in sources())
 
 
+def _run_all(commands) -> None:
+    """Start every command at once, wait for all, raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}\n"
+                          f"{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
-    """Run the one ``nvcc`` call (into a temporary name, then renamed so
-    that a concurrent reader never sees half a library)."""
+    """Compile every source at once (one ``nvcc -c`` each), then link them
+    into a temporary name that is renamed, so that a concurrent reader
+    never sees half a library."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libmgard_tpu_torch.{os.getpid()}.so"
+    pid = os.getpid()
+    tmp = BUILD_DIR / f".libmgard_tpu_torch.{pid}.so"
+    objs = [BUILD_DIR / f".{s.stem}.{pid}.o" for s in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(build_command(tmp), capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
+    try:
+        _run_all([compile_command(s, o) for s, o in zip(sources(), objs)])
+        _run_all([link_command(tmp, objs)])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, LIB_PATH)
     build_seconds = time.perf_counter() - t0
     return LIB_PATH

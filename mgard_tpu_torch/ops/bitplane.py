@@ -14,7 +14,8 @@ one 32-bit word, and only the planes up to an exponent are stored.
   (``bp_quant_max``) gives each chunk's max and status, a cumsum gives
   the row offsets, and K3 (``bp_quant_condense``) writes every segment's
   rows into the shared buffer.  Decode is K4
-  (``bp_decode_condense_f32``) per segment.
+  (``bp_decode_condense_f32``) per segment, or K11 per segment where the
+  caller dequantizes (finite s).
 * **Chunked** (``encode``/``decode``): the same stream over one flat
   int32 vector, quantized already; K12 (``bp_encode_condense``) and K11
   (``bp_decode_condense``) do the transposes and the condense.
@@ -30,6 +31,8 @@ the plain parts compute in int64, where every uint32 is a value.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -187,9 +190,11 @@ def encode_segments(segs, inv_q: float, C: int = 0):
 
 
 def decode_segments(exponents: torch.Tensor, words: torch.Tensor, sizes,
-                    quantum: float, C: int = 0):
-    """Inverse of :func:`encode_segments`, dequantized by the float32
-    ``quantum``: a list of float32 segments of ``sizes`` values.
+                    quantum: Optional[float] = None, C: int = 0):
+    """Inverse of :func:`encode_segments` (``bitplane.py:555``): a list of
+    segments of ``sizes`` values, float32 dequantized by the float32
+    ``quantum`` (K4 per segment), or without one int32 (K11 per segment,
+    the finite-s decode).
 
     ``words`` (int32) needs to hold only the stream's rows: every chunk
     reads its own ``e`` rows and nothing past them.
@@ -203,11 +208,14 @@ def decode_segments(exponents: torch.Tensor, words: torch.Tensor, sizes,
     outs = []
     a = 0
     for n, nc in zip(sizes, ncs):
-        outs.append(bp_decode_condense_f32(words, C, offsets[a:a + nc],
-                                           e[a:a + nc], quantum, int(n)))
+        off_k, e_k = offsets[a:a + nc], e[a:a + nc]
+        if quantum is None:
+            outs.append(bp_decode_condense(words, C, off_k, e_k, int(n)))
+        else:
+            outs.append(bp_decode_condense_f32(words, C, off_k, e_k,
+                                               quantum, int(n)))
         a += nc
     return outs
-
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""K2-K4, K11, K12, K16, K17: the kernels of the chunked bitplane codec,
+"""K2-K4, K11, K12, K14-K17: the kernels of the chunked bitplane codec,
 with their plain PyTorch versions (the counterpart of
 ``mgard_tpu/ops/pallas_kernels.py``).
 
@@ -33,12 +33,24 @@ against K2 and K3 on the main path's segments):
   segment's zigzag words transposed and condensed into the shared stream
   at global row offsets.
 
+The sign-magnitude cores, transpose only, on (nchunks, 32, 128) int32
+chunks (value ``i`` of group ``(c, g)`` is ``q[c, i, g]``); no path of
+either package calls them (``chip_smoke.py`` holds them on the main
+path's quantized stream):
+
+* K14 ``bp_encode_core`` (replaces ``pallas_kernels.py:93``): the 32
+  magnitude planes of each group, its sign word and each chunk's plane
+  count ``e``.
+* K15 ``bp_decode_core`` (replaces ``pallas_kernels.py:752``): the
+  inverse.
+
 Each wrapper launches its CUDA kernel (``csrc/bp_codec.cu``) for a CUDA
 tensor and counts the launch; it takes the plain version only for a
-tensor on the CPU.  All seven are bound by bytes: K2 reads the segment,
+tensor on the CPU.  All nine are bound by bytes: K2 reads the segment,
 K3 and K12 read it and write the stream rows, K4 and K11 read the rows
 and write the values, K16 reads the segment and writes its words, K17
-reads the words and writes the rows.  The plain versions hold words in
+reads the words and writes the rows, K14 reads the values and writes
+the planes and signs, K15 reads those and writes the values.  The plain versions hold words in
 int64 (values in [0, 2^32)).
 """
 
@@ -54,7 +66,8 @@ __all__ = ["bp_quant_max", "bp_quant_condense", "bp_decode_condense_f32",
            "bp_decode_condense_f32_plain", "bp_encode_condense_plain",
            "bp_decode_condense_plain", "bp_quant_zigzag",
            "bp_condense_into", "bp_quant_zigzag_plain",
-           "bp_condense_into_plain", "butterfly", "chunked", "gather_planes",
+           "bp_condense_into_plain", "bp_encode_core", "bp_decode_core",
+           "bp_encode_core_plain", "bp_decode_core_plain", "butterfly", "chunked", "gather_planes",
            "scatter_planes", "GROUP"]
 
 GROUP = 32
@@ -410,3 +423,75 @@ def bp_condense_into(z: torch.Tensor, offsets: torch.Tensor,
     _build.launch("mgard_bp_condense_into", z.data_ptr(), nchunks, C,
                   offsets.data_ptr(), e.data_ptr(), words.data_ptr())
     bp_condense_into.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K14 / K15: sign-magnitude transpose cores
+# ---------------------------------------------------------------------------
+
+CORE_LANES = 128
+
+
+def _check_core(name: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32 {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def bp_encode_core_plain(q: torch.Tensor):
+    q64 = q.long()
+    planes = butterfly(q64.abs() & _U32, 1)
+    bit = torch.arange(GROUP, device=q.device)[None, :, None]
+    sign = ((q64 < 0).long() << bit).sum(1)
+    occ = (planes != 0).any(2)
+    e = ((bit[:, :, 0] + 1) * occ).amax(1)
+    return _to_i32(planes), _to_i32(sign), e.to(torch.int32)
+
+
+@_build.counted
+def bp_encode_core(q: torch.Tensor):
+    """(planes int32 (nchunks, 32, 128), sign int32 (nchunks, 128), e
+    int32 (nchunks,)) of int32 chunks ``q`` (nchunks, 32, 128): bit i of
+    ``planes[c, b, g]`` is bit b of ``|q[c, i, g]|`` as uint32 (the int32
+    minimum's magnitude is 2^31), bit i of ``sign[c, g]`` is
+    ``q[c, i, g] < 0``, and ``e[c]`` is 1 + the highest plane of chunk c
+    with a non-zero word (0 for an all-zero chunk).  Words are uint32 bit
+    patterns."""
+    _check_core("bp_encode_core", q, (q.shape[0], GROUP, CORE_LANES))
+    nchunks = q.shape[0]
+    if q.device.type == "cpu":
+        return bp_encode_core_plain(q)
+    _check_cuda("bp_encode_core", q)
+    planes = torch.empty_like(q)
+    sign = torch.empty((nchunks, CORE_LANES), dtype=torch.int32,
+                       device=q.device)
+    e = torch.empty(nchunks, dtype=torch.int32, device=q.device)
+    _build.launch("mgard_bp_encode_core", q.data_ptr(), nchunks,
+                  planes.data_ptr(), sign.data_ptr(), e.data_ptr())
+    bp_encode_core.launches += 1
+    return planes, sign, e
+
+
+def bp_decode_core_plain(planes: torch.Tensor, sign: torch.Tensor):
+    m = butterfly(planes.long() & _U32, 1)
+    bit = torch.arange(GROUP, device=planes.device)[None, :, None]
+    neg = ((sign.long() & _U32)[:, None, :] >> bit) & 1
+    return _to_i32(torch.where(neg == 1, (-m) & _U32, m))
+
+
+@_build.counted
+def bp_decode_core(planes: torch.Tensor, sign: torch.Tensor
+                   ) -> torch.Tensor:
+    """Inverse of :func:`bp_encode_core`: int32 (nchunks, 32, 128), the
+    magnitudes negated (wrapping) where the sign bit is set."""
+    nchunks = planes.shape[0]
+    _check_core("bp_decode_core", planes, (nchunks, GROUP, CORE_LANES))
+    _check_core("bp_decode_core", sign, (nchunks, CORE_LANES))
+    if planes.device.type == "cpu":
+        return bp_decode_core_plain(planes, sign)
+    _check_cuda("bp_decode_core", planes, sign)
+    out = torch.empty_like(planes)
+    _build.launch("mgard_bp_decode_core", planes.data_ptr(), sign.data_ptr(),
+                  nchunks, out.data_ptr())
+    bp_decode_core.launches += 1
+    return out

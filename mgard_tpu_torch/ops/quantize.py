@@ -1,14 +1,15 @@
-"""L-infinity quantization (the port of the s = inf half of
-``mgard_tpu/ops/quantize.py``).
+"""Levelwise linear quantization of the multilevel coefficients (the
+port of ``mgard_tpu/ops/quantize.py``'s pyramid half).
 
-The quantum is ``2*tol / ((L+1) * (1 + 3^d))`` with ``d`` the number of
-non-flat dims.  For the segmented codec it is computed on the host in
-float32 exactly as the JAX package computes it when it traces
-``Compressor._encode_impl`` with a float32 tolerance: ``2*tol`` in
-float32, times the float32 reciprocal of the denominator (XLA folds the
-division by that constant into this multiplication), and ``inv_q = 1 /
-q`` in float32.  So the port quantizes with the very same float32
-``inv_q`` and dequantizes with the same ``q``.
+**L-infinity** (``s = inf``): the quantum is ``2*tol / ((L+1) * (1 +
+3^d))`` with ``d`` the number of non-flat dims.  For the segmented codec
+it is computed on the host in float32 exactly as the JAX package
+computes it when it traces ``Compressor._encode_impl`` with a float32
+tolerance: ``2*tol`` in float32, times the float32 reciprocal of the
+denominator (XLA folds the division by that constant into this
+multiplication), and ``inv_q = 1 / q`` in float32.  So the port
+quantizes with the very same float32 ``inv_q`` and dequantizes with the
+same ``q``.
 
 The flat stream (``scale_pyramid``/``dequantize_pyramid``: the PYRAMID
 layout and every non-segmented codec) follows the JAX package's other
@@ -19,6 +20,19 @@ times the float64 reciprocal of the denominator, the same folding), cast
 to the data's dtype, and only then inverted in that dtype; dequantizing
 multiplies by the cast ``q``.  The two roundings can differ by an ulp of
 the quantum, far inside the bound's slack.
+
+**s-norm** (finite ``s``): the quantum of a level-``l`` node is ``2*tol /
+(2^(s*l) * sqrt(ndof * vol(node)))``, with ``vol`` the product over the
+non-flat dims of half the distance between the node's neighbours in
+level ``l``'s grid (a flat dim gives a factor of 1).  Each level is
+multiplied by the scalar ``2^(s*l) * sqrt(ndof) / (2*tol)``, formed in
+float64 and cast to the data's dtype once, and then by each dim's
+``sqrt(vol)`` vector, cast to that dtype, in the order d = 0 .. ndim-1;
+dequantizing multiplies by the inverse scalar and divides by each
+vector in the same order.  Those are the JAX functions' operations one
+for one, so on the same pyramid both give the same bits (its jitted
+compressor may merge constant factors, which moves a last bit at some
+values; both stay far inside the bound).
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import numpy as np
 import torch
 
 from ..hierarchy import Hierarchy
+from .tridiag import along_axis
 
 __all__ = ["supremum_quantum", "inverse_quantum", "round_quantize",
            "flat_quantum", "scale_pyramid", "dequantize_pyramid",
@@ -60,30 +75,55 @@ def flat_quantum(hier: Hierarchy, tol: float, dtype):
     return q, np.dtype(dtype).type(1) / q
 
 
-def _finite_s_raises(s: float) -> None:
-    if not math.isinf(s):
-        raise NotImplementedError(
-            "s-norm error control (finite s) is not ported to "
-            "mgard_tpu_torch yet (ROADMAP queue A, item 3)")
+def _level_weight_vectors(hier: Hierarchy, l: int):
+    """Per-dim ``sqrt(vol)`` vectors (float64) over level ``l``'s grid
+    (``quantize.py:69``): ones(1) for a flat dim.  Parent positions of a
+    detail array hold zeros, so the weight there multiplies nothing."""
+    return [np.ones(1) if hier.shape[d] == 1
+            else np.sqrt(hier.dims[d][l].volumes) for d in range(hier.ndim)]
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A float64 value cast once to ``like``'s dtype, as a 0-d tensor."""
+    return torch.tensor(_NUMPY_DTYPE[like.dtype].type(value),
+                        device=like.device)
 
 
 def scale_pyramid(hier: Hierarchy, pyramid, s: float, tol: float):
-    """Each pyramid level times the inverse quantum, not rounded
-    (``quantize.py:82``, s = inf)."""
-    _finite_s_raises(s)
-    _, inv = flat_quantum(hier, tol, _NUMPY_DTYPE[pyramid[0].dtype])
-    return [blk * torch.tensor(inv, device=blk.device) for blk in pyramid]
+    """Each pyramid level times its inverse quanta, not rounded
+    (``quantize.py:82``)."""
+    if math.isinf(s):
+        _, inv = flat_quantum(hier, tol, _NUMPY_DTYPE[pyramid[0].dtype])
+        return [blk * torch.tensor(inv, device=blk.device)
+                for blk in pyramid]
+    out = []
+    for l, blk in enumerate(pyramid):
+        scaled = blk * _scalar((2.0 ** (s * l)) * math.sqrt(hier.ndof())
+                               / (2.0 * float(tol)), blk)
+        for d, w in enumerate(_level_weight_vectors(hier, l)):
+            scaled = scaled * along_axis(w, blk, d)
+        out.append(scaled)
+    return out
 
 
 def dequantize_pyramid(hier: Hierarchy, qpyramid, s: float, tol: float,
                        dtype):
-    """Integer pyramid levels times the quantum, in ``dtype``
-    (``quantize.py:135``, s = inf)."""
-    _finite_s_raises(s)
-    q, _ = flat_quantum(hier, tol, dtype)
+    """Integer pyramid levels times their quanta, in ``dtype``
+    (``quantize.py:140``)."""
     tdt = TORCH_DTYPE[np.dtype(dtype)]
-    return [blk.to(tdt) * torch.tensor(q, device=blk.device)
-            for blk in qpyramid]
+    if math.isinf(s):
+        q, _ = flat_quantum(hier, tol, dtype)
+        return [blk.to(tdt) * torch.tensor(q, device=blk.device)
+                for blk in qpyramid]
+    out = []
+    for l, blk in enumerate(qpyramid):
+        c = blk.to(tdt)
+        c = c * _scalar((2.0 * float(tol))
+                        / ((2.0 ** (s * l)) * math.sqrt(hier.ndof())), c)
+        for d, w in enumerate(_level_weight_vectors(hier, l)):
+            c = c / along_axis(w, c, d)
+        out.append(c)
+    return out
 
 
 def round_quantize(scaled: torch.Tensor, int_dtype=torch.int32

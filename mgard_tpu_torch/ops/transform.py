@@ -41,11 +41,13 @@ from ..hierarchy import DimLevel, Hierarchy
 from . import extract_kernels as xk
 from . import lpk_kernels as lk
 from . import stencil_kernels as sk
+from .tridiag import along_axis, pad_axis
 
-__all__ = ["decompose", "recompose", "recompose_to_level"]
+__all__ = ["decompose", "recompose", "recompose_to_level", "restrict"]
 
 # Dims up to this size use the dense-matrix operators; longer dims need
-# the tridiagonal-scan path, which is not ported yet.
+# the per-dim transform (prolong, and the correction through
+# ops/tridiag.py's solves), which is not ported yet.
 _MATMUL_MAX_N = 4096
 
 # The JAX package's switch, read at import as it reads it: "1" applies
@@ -186,6 +188,52 @@ def extract_old(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
         return v
     idx = torch.as_tensor(np.asarray(lev.coarse_pos), device=v.device)
     return v.index_select(axis, idx)
+
+
+def _slice_axis(v: torch.Tensor, start: int, stop: int, step: int,
+                axis: int) -> torch.Tensor:
+    idx = [slice(None)] * v.dim()
+    idx[axis] = slice(start, stop, step)
+    return v[tuple(idx)]
+
+
+def restrict(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
+    """Adjoint of prolongation along ``axis`` (``transform.py:127``): each
+    new node's value goes to its parents, ``(1 - r)`` of it to the left
+    and ``r`` to the right (reference ConstituentRestriction,
+    include/TensorRestriction.tpp:24-71).  The hierarchy puts at most one
+    new node in a parent interval."""
+    if lev.coarse_pos is None:
+        return v
+    nc = len(lev.coarse_pos)
+    old = extract_old(v, lev, axis)
+    if lev.new_pos is None or len(lev.new_pos) == 0:
+        return old
+    if lev.coarse_is_stride2:
+        new = _slice_axis(v, 1, lev.n, 2, axis)
+        r = lev.new_ratio
+    elif lev.front_nc is not None:
+        # front-interleaved: new nodes at odd positions 1 .. 2*fc-3,
+        # between front parents j and j+1; the tail parents get nothing
+        fc = lev.front_nc
+        new = _slice_axis(v, 1, 2 * fc - 1, 2, axis)
+        rj = along_axis(lev.new_ratio, v, axis)
+        return old + pad_axis((1 - rj) * new, 0, nc - fc + 1, axis) \
+            + pad_axis(rj * new, 1, nc - fc, axis)
+    else:
+        # general: each parent interval's new node (or none, masked to 0)
+        seg = np.searchsorted(lev.coarse_pos, lev.new_pos) - 1
+        dense_new = np.full(nc - 1, -1, dtype=np.int64)
+        r = np.zeros(nc - 1, dtype=np.float64)
+        dense_new[seg] = lev.new_pos
+        r[seg] = lev.new_ratio
+        has = dense_new >= 0
+        newv = v.index_select(axis, torch.as_tensor(
+            np.where(has, dense_new, 0), device=v.device))
+        new = newv * along_axis(has.astype(np.float64), v, axis)
+    rj = along_axis(r, v, axis)
+    return old + pad_axis((1 - rj) * new, 0, 1, axis) \
+        + pad_axis(rj * new, 1, 0, axis)
 
 
 def _extract_old_all(hier: Hierarchy, A: torch.Tensor, l: int):

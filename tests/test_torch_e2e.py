@@ -86,8 +86,9 @@ def test_unported_branches_raise():
         mt.compress(v, 1e-3, device="cpu",      # the FINE layout
                     config=mt.Config(layout=mt.config.Layout.FINE))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, s=0.0, device="cpu",
-                    config=mt.Config(adapt_lossless=False))
+        mt.compress(v, 1e-3, device="cpu",      # SINGLEDIM
+                    config=mt.Config(
+                        decomposition=mt.config.Decomposition.SINGLEDIM))
     huffman = tfmt.write_container(tfmt.Header(
         dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
         error_mode=0, s=math.inf, tolerance=1e-3, norm=1.0,
