@@ -23,8 +23,13 @@ Phases (each prints its wall time):
                  the field at the finest level, K8 on K7's output, K6 and
                  K9 on K1's coarse array, K10 on K9's output, with K5's
                  detail), bit-identical, timed with CUDA events, and the
-                 matmul form that K5/K6 replace timed beside them; K8 o K7
-                 bit-identical to K5 and K10 o K9 to K6; K12 and K11 on
+                 matmul form that K5/K6 replace timed beside them; K2 as
+                 one launch over the 10 segments (timed alone, beside the
+                 one-segment wrapper once per segment and the largest
+                 segment alone) and with a NaN and an overflow planted in
+                 two segments, status 2 and 1 on exactly their chunks;
+                 K8 o K7 bit-identical to K5 and K10 o K9 to K6; K12 and
+                 K11 on
                  the flat PYRAMID stream of the field (with an int32
                  minimum planted in it), and K4 and K11 on a stream with
                  no words (every exponent 0); K14 and K15 (the
@@ -45,7 +50,8 @@ Phases (each prints its wall time):
                  shows a multiply-add that the compiler contracted;
   4. main path - mgard_tpu_torch.compress / decompress at 512^3 with the
                  launch counters set to 0 just before and read just
-                 after; K1-K6 launch, K5 and K6 once each, K7-K17 not;
+                 after; K1-K6 launch, K2, K5 and K6 once each, K7-K17
+                 not; K2 launched per segment writes the same container;
   5. timing    - device encode/decode by CUDA events, with the GPK
                  kernels on and then off (the matmul form), and the host
                  parts by host clock;
@@ -277,18 +283,34 @@ def check_kernels(hier, v):
     ncs = [bitplane.num_chunks_tiled(p.numel(), C) for p in pyr]
     nvals = sum(p.numel() for p in pyr)
 
+    # K2: one launch over the whole pyramid, as encode_segments calls it,
+    # against the concatenated plain results; the one-segment wrapper
+    # once per segment gives the same words
+    batched = bk.bp_quant_max_segments(pyr, ncs, C, inv_q)
+    err = max(max_abs_diff(g, w) for g, w in zip(
+        batched, bk.bp_quant_max_segments_plain(pyr, ncs, C, inv_q)))
     got = [bk.bp_quant_max(p, nc, C, inv_q) for p, nc in zip(pyr, ncs)]
-    want = [bk.bp_quant_max_plain(p, nc, C, inv_q) for p, nc in zip(pyr, ncs)]
-    err = max(max(max_abs_diff(g[0], w[0]), max_abs_diff(g[1], w[1]))
-              for g, w in zip(got, want))
-    if any(int(g[1].max()) for g in got):
+    if any(not torch.equal(torch.cat([g[k] for g in got]), batched[k])
+           for k in (0, 1)):
+        raise AssertionError("K2 per segment differs from K2 batched")
+    if int(batched[1].max()):
         raise AssertionError("main-path data gave a nonzero codec status")
+    check_quant_max_planted(pyr, ncs, C, inv_q)
+    big = max(range(len(pyr)), key=lambda k: pyr[k].numel())
+    per_segment_ms = cuda_ms(lambda: [bk.bp_quant_max(p, nc, C, inv_q)
+                                      for p, nc in zip(pyr, ncs)], 10)
+    largest_ms = cuda_ms(lambda: bk.bp_quant_max(pyr[big], ncs[big], C,
+                                                 inv_q), 10)
+    batched_ms = cuda_ms(lambda: bk.bp_quant_max_segments(pyr, ncs, C,
+                                                          inv_q), 10)
+    log(f"K2 times: one launch over the {len(pyr)} segments "
+        f"{batched_ms:.4f} ms; the one-segment wrapper once per segment "
+        f"{per_segment_ms:.4f} ms; the largest segment ({pyr[big].numel()} "
+        f"values, {ncs[big]} chunks) alone {largest_ms:.4f} ms")
     add("bp_quant_max", "mgard_tpu_torch/csrc/bp_codec.cu",
-        "mgard_tpu/ops/pallas_kernels.py:536", err,
-        cuda_ms(lambda: [bk.bp_quant_max(p, nc, C, inv_q)
-                         for p, nc in zip(pyr, ncs)], 5),
-        cuda_ms(lambda: [bk.bp_quant_max_plain(p, nc, C, inv_q)
-                         for p, nc in zip(pyr, ncs)], 2),
+        "mgard_tpu/ops/pallas_kernels.py:536", err, batched_ms,
+        cuda_ms(lambda: bk.bp_quant_max_segments_plain(pyr, ncs, C, inv_q),
+                2),
         4 * nvals + 8 * sum(ncs), (OPS_QUANT + 1) * nvals)
 
     e = bitplane._bit_length32(torch.cat([g[0] for g in got]))
@@ -331,6 +353,41 @@ def check_kernels(hier, v):
     log(f"codec inputs: {len(pyr)} segments, {nvals} values, {sum(ncs)} "
         f"chunks, {rows} stream rows of {C} words")
     return results
+
+
+def check_quant_max_planted(pyr, ncs, C, inv_q):
+    """K2 batched on the main path's segments with a NaN planted in chunk
+    5 of the largest and a value past the int32 range in chunk 2 of the
+    next: bit for bit against the concatenated plain results, status 2
+    and 1 on exactly those chunks."""
+    import torch
+    from mgard_tpu_torch.ops import bp_kernels as bk
+
+    big = max(range(len(pyr)), key=lambda k: pyr[k].numel())
+    other = max((k for k in range(len(pyr)) if k != big),
+                key=lambda k: pyr[k].numel())
+    segs = list(pyr)
+    segs[big] = pyr[big].clone()
+    segs[big][5 * 32 * C + 11] = float("nan")
+    segs[other] = pyr[other].clone()
+    segs[other][2 * 32 * C + 7] = 2.0 ** 32 / inv_q
+    got = bk.bp_quant_max_segments(segs, ncs, C, inv_q)
+    want = bk.bp_quant_max_segments_plain(segs, ncs, C, inv_q)
+    err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    starts = np.concatenate([[0], np.cumsum(ncs)]).astype(int)
+    expect = torch.zeros_like(got[1])
+    expect[starts[big] + 5] = 2
+    expect[starts[other] + 2] = 1
+    flagged = torch.nonzero(got[1]).flatten().tolist()
+    log(f"K2 batched with a NaN in chunk 5 of segment {big} and 2^32 / "
+        f"inv_q in chunk 2 of segment {other}: max_abs_err={err} "
+        f"(tolerance 0), status {got[1][flagged].tolist()} at global "
+        f"chunks {flagged} (expected 2 at {starts[big] + 5}, 1 at "
+        f"{starts[other] + 2})")
+    if err or not torch.equal(got[1], expect):
+        raise AssertionError("K2 batched on planted values: statuses "
+                             f"{got[1][flagged].tolist()} at {flagged}, "
+                             f"error {err}")
 
 
 def check_split_kernels(add, pyr, ncs, C, inv_q, k2, words, rows):
@@ -795,9 +852,10 @@ def main_path(v_host):
     if missing or extra:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}; launched off it: {extra}")
-    if counts["gpk_detail"] != 1 or counts["gpk_prolong_add"] != 1:
-        raise AssertionError("K5/K6 must launch once each per round trip "
-                             f"at {SHAPE}: {counts}")
+    if counts["gpk_detail"] != 1 or counts["gpk_prolong_add"] != 1 \
+            or counts["bp_quant_max"] != 1:
+        raise AssertionError("K5, K6 and K2 must launch once each per round "
+                             f"trip at {SHAPE}: {counts}")
     if out.shape != v_host.shape or out.dtype != np.float32:
         raise AssertionError(f"output {out.shape} {out.dtype}")
     if not np.isfinite(out).all():
@@ -812,8 +870,37 @@ def main_path(v_host):
         raise AssertionError(f"ratio {ratio} is not within 1% of "
                              f"{RATIO_MATMUL_ONLY}")
     del out
+    check_k2_per_segment_container(v_host, buf)
     torch.cuda.synchronize()
     return buf, counts
+
+
+def check_k2_per_segment_container(v_host, buf):
+    """The container that encode_segments writes with K2 launched once
+    per segment (the one-segment wrapper, as before the batched launch)
+    is the main path's, byte for byte."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
+
+    def per_segment(segs, ncs, C, inv_q):
+        outs = [bk.bp_quant_max(s, nc, C, inv_q) for s, nc in zip(segs, ncs)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    batched = bitplane.bp_quant_max_segments
+    try:
+        bitplane.bp_quant_max_segments = per_segment
+        before = bk.bp_quant_max.launches
+        other = mt.compress(v_host, TOL)
+        launches = bk.bp_quant_max.launches - before
+    finally:
+        bitplane.bp_quant_max_segments = batched
+    log(f"K2 once per segment ({launches} launches): the container is the "
+        f"main path's byte for byte {other == buf}")
+    if other != buf or launches != mt.Hierarchy(SHAPE).L + 1:
+        raise AssertionError("the one-segment K2 path writes another "
+                             f"container ({launches} launches)")
 
 
 def time_device(comp, v, exps, words, label):

@@ -9,11 +9,30 @@
 // e_c emits planes 0..e_c-1 (LSB first), C words each, at rows
 // offsets[c] .. offsets[c] + e_c - 1 of one shared stream.
 //
-// Every kernel maps one thread to one column g of one chunk: the thread
-// keeps its 32 words in registers, the 5-stage butterfly transposes them
-// there, and the loads and stores of a warp touch 32 consecutive words
-// of one row, so all global traffic is coalesced.  All of them are bound
-// by bytes (a few integer operations per byte moved).
+// The transposing kernels map one thread to one column g of one chunk:
+// the thread keeps its 32 words in registers, the 5-stage butterfly
+// transposes them there, and the loads and stores of a warp touch 32
+// consecutive words of one row, so all global traffic is coalesced.  All
+// kernels are bound by bytes (a few integer operations per byte moved).
+//
+// K2 transposes nothing: it takes each chunk's largest zigzag word and
+// its status, both order-free, and a chunk is a contiguous span of 32*C
+// values.  So one block of 512 threads reads one chunk front to back
+// with 16-byte loads (four in flight a thread; chunk starts are
+// multiples of 32*C*4 bytes, a ragged tail or a base that is not 16-byte
+// aligned is read value by value) and reduces in registers, then with
+// warp reduces, then in shared memory, and writes its chunk's two words
+// itself: no zero-filled outputs and no atomics.  One launch covers every
+// segment of a pyramid: the segment table (base pointers, value counts,
+// first chunks; at most 32 segments, and dims up to 4096 give at most 13
+// levels) travels by value in the kernel's parameters, so nothing is
+// copied to the device and nothing waits.  A block per chunk, not a few
+// blocks per chunk with atomics: 1,204 chunks of 512 KB at 512^3 are
+// 2.3 waves of 4 resident blocks an SM (30 registers a thread), and the
+// 32 KB of loads each block keeps in flight are enough to keep the
+// memory busy in the last, partial wave.  One launch a segment would cost 10 host round trips at
+// 512^3 while the small segments' device work is microseconds, so the
+// card would wait on the host.
 //
 //   K2 bp_quant_max             replaces mgard_tpu/ops/pallas_kernels.py:527
 //   K3 bp_quant_condense        replaces mgard_tpu/ops/pallas_kernels.py:459
@@ -147,30 +166,93 @@ __device__ __forceinline__ int unzigzag(uint32_t z) {
   return static_cast<int>(z >> 1) ^ -static_cast<int>(z & 1u);
 }
 
-__global__ void bp_quant_max_kernel(const float* __restrict__ x, long long n,
-                                    int C, float invq,
-                                    uint32_t* __restrict__ zmax,
-                                    int* __restrict__ status) {
-  const int c = blockIdx.x;
-  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+// K2 over every segment of a pyramid in one launch.  The segment table
+// travels by value in the kernel's parameters (no copy to the device, no
+// sync); a chunk is the contiguous span of 32*C values it is, so one
+// block reads it front to back with 16-byte loads and reduces its
+// maximum and status in registers, warps and shared memory.
+constexpr int kMaxSegments = 32;
+constexpr int kQuantMaxThreads = 512;
+
+struct SegmentTable {
+  const float* x[kMaxSegments];
+  long long n[kMaxSegments];
+  int first[kMaxSegments + 1];  // first global chunk of each segment
+  int nseg;
+};
+
+__device__ __forceinline__ void quant_max4(const float4 f, float invq,
+                                           uint32_t& m, int& st) {
+  m = max(m, quant_zigzag(f.x, invq, st));
+  m = max(m, quant_zigzag(f.y, invq, st));
+  m = max(m, quant_zigzag(f.z, invq, st));
+  m = max(m, quant_zigzag(f.w, invq, st));
+}
+
+__global__ void __launch_bounds__(kQuantMaxThreads)
+bp_quant_max_segments_kernel(const SegmentTable t, int C, float invq,
+                             uint32_t* __restrict__ zmax,
+                             int* __restrict__ status) {
+  __shared__ uint32_t warp_max[kQuantMaxThreads / 32];
+  __shared__ int warp_status[kQuantMaxThreads / 32];
+  const int chunk = blockIdx.x;
+  int s = 0;
+  while (s + 1 < t.nseg && chunk >= t.first[s + 1]) ++s;
+  const int span = 32 * C;
+  const long long start =
+      static_cast<long long>(chunk - t.first[s]) * span;
+  const long long left = t.n[s] - start;
+  const int count = left <= 0 ? 0 : (left < span ? static_cast<int>(left)
+                                                 : span);
+  const float* __restrict__ x = t.x[s] + (count ? start : 0);
+  const int step = blockDim.x;
   uint32_t m = 0u;
   int st = 0;
-  if (g < C) {
-    uint32_t r[32];
-    load_quant(x, n, static_cast<size_t>(c) * 32 * C + g, C, invq, r, st);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) m = r[i] > m ? r[i] : m;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(x) & 15u) == 0) {
+    const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
+    const int nvec = count / 4;
+    int v = threadIdx.x;
+    // four 16-byte loads in flight a thread before any is used
+    for (; v + 3 * step < nvec; v += 4 * step) {
+      const float4 a = x4[v], b = x4[v + step], c = x4[v + 2 * step],
+                   d = x4[v + 3 * step];
+      quant_max4(a, invq, m, st);
+      quant_max4(b, invq, m, st);
+      quant_max4(c, invq, m, st);
+      quant_max4(d, invq, m, st);
+    }
+    for (; v < nvec; v += step) quant_max4(x4[v], invq, m, st);
+    done = 4 * nvec;
+  }
+  // the ragged tail, or the whole chunk where its base is not 16-byte
+  // aligned
+  for (int k = done + threadIdx.x; k < count; k += step) {
+    m = max(m, quant_zigzag(x[k], invq, st));
   }
   m = __reduce_max_sync(0xffffffffu, m);
   st = __reduce_max_sync(0xffffffffu, st);
+  const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) {
-    if (m) atomicMax(zmax + c, m);
-    if (st) atomicMax(status + c, st);
+    warp_max[warp] = m;
+    warp_status[warp] = st;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int lane = threadIdx.x;
+    const bool live = lane < static_cast<int>(blockDim.x >> 5);
+    m = __reduce_max_sync(0xffffffffu, live ? warp_max[lane] : 0u);
+    st = __reduce_max_sync(0xffffffffu, live ? warp_status[lane] : 0);
+    if (lane == 0) {
+      zmax[chunk] = m;
+      status[chunk] = st;
+    }
   }
 }
 
-// K16: K2's loads, quantizer and per-chunk max and status, plus a store
-// of each word at its own position (coalesced, as the loads are).
+// K16: the column loads and quantizer of the transposing kernels, each
+// chunk's max and status (a warp reduce and atomicMax into zero-filled
+// outputs), plus a store of each word at its own position.
 __global__ void bp_quant_zigzag_kernel(const float* __restrict__ x,
                                        long long n, int C, float invq,
                                        uint32_t* __restrict__ z,
@@ -340,14 +422,35 @@ int codec_threads(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
 
 }  // namespace
 
-extern "C" cudaError_t mgard_bp_quant_max(const float* x, long long n,
-                                          int nchunks, int C, float invq,
-                                          uint32_t* zmax, int* status,
-                                          cudaStream_t stream) {
-  if (nchunks <= 0) return cudaSuccess;
-  const int threads = codec_threads(C);
-  bp_quant_max_kernel<<<codec_grid(nchunks, C, threads), threads, 0,
-                        stream>>>(x, n, C, invq, zmax, status);
+// K2: one block per chunk of every segment.  x[s], n[s] and nchunks[s]
+// are host arrays of nseg entries (at most kMaxSegments), copied into
+// the kernel's parameters; zmax and status hold one entry per chunk of
+// all segments, in segment order.
+extern "C" cudaError_t mgard_bp_quant_max_segments(
+    const float* const* x, const long long* n, const int* nchunks, int nseg,
+    int C, float invq, uint32_t* zmax, int* status, cudaStream_t stream) {
+  if (nseg < 0 || nseg > kMaxSegments || C <= 0 || C > (1 << 25)) {
+    return cudaErrorInvalidValue;
+  }
+  SegmentTable t{};
+  long long total = 0;
+  for (int s = 0; s < nseg; ++s) {
+    if (nchunks[s] < 0 || n[s] < 0 ||
+        n[s] > static_cast<long long>(nchunks[s]) * 32 * C) {
+      return cudaErrorInvalidValue;
+    }
+    t.x[s] = x[s];
+    t.n[s] = n[s];
+    t.first[s] = static_cast<int>(total);
+    total += nchunks[s];
+    if (total > 0x7fffffffLL) return cudaErrorInvalidValue;
+  }
+  t.first[nseg] = static_cast<int>(total);
+  t.nseg = nseg;
+  if (total == 0) return cudaSuccess;
+  bp_quant_max_segments_kernel<<<static_cast<unsigned>(total),
+                                 kQuantMaxThreads, 0, stream>>>(
+      t, C, invq, zmax, status);
   return cudaGetLastError();
 }
 

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # argtypes of every launcher; each returns cudaError_t (an int)
 _SIGNATURES = {
     "mgard_extract_coarse_3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mgard_bp_quant_max": (_P, _LL, _I, _I, _F, _P, _P, _P),
+    "mgard_bp_quant_max_segments": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
     "mgard_bp_quant_condense": (_P, _LL, _I, _I, _F, _P, _P, _P, _P),
     "mgard_bp_decode_condense_f32": (_P, _I, _I, _P, _P, _F, _P, _LL, _P),
     "mgard_bp_encode_condense": (_P, _I, _I, _P, _P, _P, _P),

@@ -11,9 +11,10 @@ one 32-bit word, and only the planes up to an exponent are stored.
   length ``e`` emits its ``e`` lowest planes (LSB first, ``C`` words
   each) into one shared stream, at the row where the exclusive cumsum of
   the exponents puts it.  Encode is two passes over the floats: K2
-  (``bp_quant_max``) gives each chunk's max and status, a cumsum gives
-  the row offsets, and K3 (``bp_quant_condense``) writes every segment's
-  rows into the shared buffer.  Decode is K4
+  (``bp_quant_max_segments``, one launch over all segments) gives each
+  chunk's max and status, a cumsum gives the row offsets, and K3
+  (``bp_quant_condense``, per segment) writes every segment's rows into
+  the shared buffer.  Decode is K4
   (``bp_decode_condense_f32``) per segment, or K11 per segment where the
   caller dequantizes (finite s).
 * **Chunked** (``encode``/``decode``): the same stream over one flat
@@ -38,7 +39,7 @@ import torch
 
 from .bp_kernels import (GROUP, butterfly, bp_decode_condense,
                          bp_decode_condense_f32, bp_encode_condense,
-                         bp_quant_condense, bp_quant_max, chunked,
+                         bp_quant_condense, bp_quant_max_segments, chunked,
                          gather_planes, scatter_planes)
 
 __all__ = ["encode_segments", "decode_segments", "max_words_segments",
@@ -171,12 +172,8 @@ def encode_segments(segs, inv_q: float, C: int = 0):
     total_chunks = sum(ncs)
     cap_rows = total_chunks * (GROUP + 1)
 
-    zmaxs, flags = [], []
-    for seg, nc in zip(segs, ncs):
-        zm, fl = bp_quant_max(seg, nc, C, inv_q)
-        zmaxs.append(zm)
-        flags.append(fl)
-    e = _bit_length32(torch.cat(zmaxs))
+    zmax, flags = bp_quant_max_segments(segs, ncs, C, inv_q)
+    e = _bit_length32(zmax)
     offsets = _offsets(e)
     words = torch.zeros(cap_rows * C, dtype=torch.int32, device=device)
     a = 0
@@ -185,7 +182,7 @@ def encode_segments(segs, inv_q: float, C: int = 0):
                           e[a:a + nc], words)
         a += nc
     count = e.sum(dtype=torch.int64) * C
-    status = torch.cat(flags).max()
+    status = flags.max()
     return e.to(torch.uint8), words, count, status
 
 

@@ -8,7 +8,12 @@ row ``i``, column ``g``.  Stream words live in int32 tensors holding the
 bit patterns of the wire's uint32 words.
 
 * K2 ``bp_quant_max`` (replaces ``pallas_kernels.py:527``): per chunk,
-  the max zigzag word and a status (2 non-finite input, 1 overflow).
+  the max zigzag word and a status (2 non-finite input, 1 overflow; a
+  value with a status leaves its word out of the max).  One launch takes
+  every segment of a pyramid (``bp_quant_max_segments``, at most
+  ``SEGMENT_CAPACITY``; the table travels in the kernel's parameters);
+  ``bp_quant_max`` is its one-segment case.  Both count on
+  ``bp_quant_max.launches``.
 * K3 ``bp_quant_condense`` (replaces ``pallas_kernels.py:459``):
   quantize, zigzag and bit-transpose; chunk c writes planes
   0..e_c-1 at stream rows ``offsets[c]...``.
@@ -56,13 +61,17 @@ int64 (values in [0, 2^32)).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
 __all__ = ["bp_quant_max", "bp_quant_condense", "bp_decode_condense_f32",
            "bp_encode_condense", "bp_decode_condense",
-           "bp_quant_max_plain", "bp_quant_condense_plain",
+           "bp_quant_max_plain", "bp_quant_max_segments",
+           "bp_quant_max_segments_plain", "SEGMENT_CAPACITY",
+           "bp_quant_condense_plain",
            "bp_decode_condense_f32_plain", "bp_encode_condense_plain",
            "bp_decode_condense_plain", "bp_quant_zigzag",
            "bp_condense_into", "bp_quant_zigzag_plain",
@@ -181,27 +190,83 @@ def _chunk_status(x: torch.Tensor, inv_q: float) -> torch.Tensor:
 
 
 def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
+    """Plain K2: a value whose status is not 0 leaves its word out of the
+    maximum (read as 0), as the kernel does."""
     x = chunked(seg, nchunks, C)
-    zmax = _quant_zigzag(x, inv_q).flatten(1).amax(1)
-    return _to_i32(zmax), _chunk_status(x, inv_q)
+    xs = x * torch.tensor(inv_q, dtype=torch.float32, device=x.device)
+    bad = ~torch.isfinite(x) | (xs.abs() + 0.5 >= 2.0 ** 31)
+    z = torch.where(bad, 0, _quant_zigzag(x, inv_q))
+    return _to_i32(z.flatten(1).amax(1)), _chunk_status(x, inv_q)
+
+
+# Segments one K2 launch takes: its table travels in the kernel's
+# parameters (csrc/bp_codec.cu, kMaxSegments).  Dims up to 4096 give at
+# most 13 levels.
+SEGMENT_CAPACITY = 32
+
+
+def bp_quant_max_segments_plain(segs, ncs, C: int, inv_q: float):
+    """Plain K2 over several segments: the per-segment results,
+    concatenated."""
+    outs = [bp_quant_max_plain(s, nc, C, inv_q) for s, nc in zip(segs, ncs)]
+    if not outs:
+        empty = torch.zeros(0, dtype=torch.int32)
+        return empty, empty.clone()
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def _quant_max_launch(segs, ncs, C: int, inv_q: float):
+    """One K2 launch over ``segs`` (contiguous float32 CUDA tensors on
+    one device), counted on :func:`bp_quant_max`."""
+    _check_cuda("bp_quant_max", *segs)
+    devices = {s.device for s in segs}
+    if len(devices) > 1:
+        raise ValueError("bp_quant_max: segments on "
+                         f"{sorted(map(str, devices))}")
+    total = sum(ncs)
+    zmax = torch.empty(total, dtype=torch.int32, device=segs[0].device)
+    status = torch.empty(total, dtype=torch.int32, device=segs[0].device)
+    if total == 0:
+        return zmax, status
+    k = len(segs)
+    ptrs = (ctypes.c_void_p * k)(*[s.data_ptr() for s in segs])
+    ns = (ctypes.c_longlong * k)(*[s.numel() for s in segs])
+    chunks = (ctypes.c_int * k)(*ncs)
+    _build.launch("mgard_bp_quant_max_segments", ctypes.addressof(ptrs),
+                  ctypes.addressof(ns), ctypes.addressof(chunks), k, C,
+                  float(inv_q), zmax.data_ptr(), status.data_ptr())
+    bp_quant_max.launches += 1
+    return zmax, status
 
 
 @_build.counted
 def bp_quant_max(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
     """(zmax int32 (nchunks,) uint32 bit patterns, status int32
-    (nchunks,)) of one float32 segment scaled by ``inv_q``."""
+    (nchunks,)) of one float32 segment scaled by ``inv_q``: K2's launch
+    with one segment."""
     _check_chunks(seg, nchunks, C)
     if seg.device.type == "cpu":
         return bp_quant_max_plain(seg, nchunks, C, inv_q)
-    _check_cuda("bp_quant_max", seg)
-    zmax = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
-    status = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
-    _build.launch("mgard_bp_quant_max", seg.data_ptr(), seg.numel(),
-                  nchunks, C, float(inv_q), zmax.data_ptr(),
-                  status.data_ptr())
-    bp_quant_max.launches += 1
-    return zmax, status
+    return _quant_max_launch([seg], [nchunks], C, inv_q)
 
+
+def bp_quant_max_segments(segs, ncs, C: int, inv_q: float):
+    """K2 over every segment at once: ``bp_quant_max`` of each segment
+    ``segs[s]`` in ``ncs[s]`` chunks, concatenated, from ONE launch (at
+    most ``SEGMENT_CAPACITY`` segments; more raise).  An empty list gives
+    two empty int32 tensors on the CPU."""
+    segs, ncs = list(segs), [int(nc) for nc in ncs]
+    if len(segs) != len(ncs):
+        raise ValueError("one chunk count per segment")
+    if len(segs) > SEGMENT_CAPACITY:
+        raise ValueError(f"{len(segs)} segments: one K2 launch takes at "
+                         f"most {SEGMENT_CAPACITY}")
+    for seg, nc in zip(segs, ncs):
+        _check_chunks(seg, nc, C)
+    if all(s.device.type == "cpu" for s in segs):
+        return bp_quant_max_segments_plain(segs, ncs, C, inv_q)
+    return _quant_max_launch(segs, ncs, C, inv_q)
 
 
 # ---------------------------------------------------------------------------

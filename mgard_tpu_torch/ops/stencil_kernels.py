@@ -30,11 +30,14 @@ first and the last position of a dim are always parental, so no lerp
 reads across an edge.  The composition order (dim 2, then dim 0, then
 dim 1) is the JAX kernels', on both sides, so that encode and decode
 run the same lerps.
-The kernels (``csrc/stencil.cu``) evaluate the lerp tree per output
-element; K6 and K9 read the coarse array ``C`` at its coarse indices,
-so no embedded array is formed.  Each wrapper takes its plain PyTorch
-version for a CPU tensor, launches its kernel for a CUDA tensor and
-raises for anything else.
+The kernels (``csrc/stencil.cu``) read the coarse array ``C`` at its
+coarse indices (K6, K9), so no embedded array is formed.  K5 and K7-K10
+evaluate the lerp tree per output element; K6 builds ``K6_TILE`` output
+tiles in shared memory, each B_d value computed once (stage B2 over the
+tile's parent rows and their halo, then B0, then B1 plus ``detail``,
+16 bytes a thread), and takes only the levels the gate admits.  Each
+wrapper takes its plain PyTorch version for a CPU tensor, launches its
+kernel for a CUDA tensor and raises for anything else.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ __all__ = ["gpk_structure_ok", "gpk_supported", "gpk_detail",
 # that it engages GPK on exactly the levels the TPU does.
 _B0 = 8
 _B1 = 128
+
+# K6's output tile (dims 0, 1, 2), csrc/stencil.cu kT0, kT1, kT2.
+K6_TILE = (8, 8, 128)
 
 # The JAX package's switch, read at import as it reads it: "0" selects the
 # two-pass form (K7-K10) in gpk_detail / gpk_prolong_add.
@@ -303,6 +309,9 @@ def gpk_prolong_add(hier: Hierarchy, C: torch.Tensor, detail: torch.Tensor,
         return gpk_prolong_add_plain(hier, C, detail, l)
     shape, cshape = hier.shapes[l], hier.shapes[l - 1]
     _check_cuda("gpk_prolong_add", C=(C, cshape), detail=(detail, shape))
+    if not gpk_structure_ok(hier, l):
+        raise ValueError(f"gpk_prolong_add: level {l} of {hier.shape} is "
+                         "not of the structure the GPK gate admits")
     out = torch.empty_like(detail)
     _build.launch("mgard_gpk_prolong_add", C.data_ptr(), detail.data_ptr(),
                   out.data_ptr(), *_table_ptrs(hier, l, C.device), *shape,
