@@ -2,7 +2,7 @@
 """Time K2 (``bp_quant_max``) and K6 (``gpk_prolong_add``) of one or more
 checkouts of the port on one NVIDIA GPU, in turns.
 
-    python3 chip_probe.py [--ptxas] TREE [TREE ...]
+    python3 chip_probe.py [--ptxas | --api] TREE [TREE ...]
 
 Each TREE is a directory that holds ``mgard_tpu_torch/`` (this checkout
 is ``.``; an older commit unpacked with ``git archive`` is another).  The
@@ -21,6 +21,11 @@ level-9 K6 inputs), it prints one JSON line with, in ms by CUDA events:
   of K2's kernels alone, summed over one encode's launches, by
   ``torch.profiler`` (``null`` where it records no device time);
 * ``k6``: K6 at level 9, held bit for bit against its plain version.
+
+``--api`` instead times, for each tree, the 512^3 API round trip
+(``mt.compress`` and ``mt.decompress`` with numpy in and out, host
+clock) five times after one warm-up, and holds the output within the
+tolerance.
 
 ``--ptxas`` first compiles each ``csrc/*.cu`` of this checkout with
 ``nvcc -Xptxas -v`` and prints the registers, shared memory and spills
@@ -139,6 +144,40 @@ def run_tree(tree: str) -> dict:
     return res
 
 
+def run_api(tree: str, reps: int = 5) -> dict:
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    sys.path.insert(1, HERE)
+    import time
+    from chip_smoke import SHAPE, TOL, smooth_field_host
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import _build
+
+    if not os.path.samefile(os.path.dirname(mt.__file__),
+                            os.path.join(tree, "mgard_tpu_torch")):
+        raise RuntimeError(f"imported {mt.__file__}, not {tree}'s package")
+    _build.lib()
+    v = smooth_field_host(SHAPE)
+    mt.decompress(mt.compress(v, TOL))
+    comp_ms, dec_ms = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        buf = mt.compress(v, TOL)
+        t1 = time.perf_counter()
+        out = mt.decompress(buf)
+        t2 = time.perf_counter()
+        comp_ms.append(1e3 * (t1 - t0))
+        dec_ms.append(1e3 * (t2 - t1))
+        err = float(np.abs(out.astype(np.float64) - v).max())
+        if not err <= TOL:
+            raise AssertionError(f"error {err} exceeds {TOL}")
+        del out
+    return {"tree": tree, "shape": list(SHAPE), "bytes": len(buf),
+            "compress_ms": comp_ms, "decompress_ms": dec_ms,
+            "compress_mean_ms": float(np.mean(comp_ms)),
+            "decompress_mean_ms": float(np.mean(dec_ms))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -148,8 +187,15 @@ def main() -> int:
     if args[:1] == ["--one"]:
         print(json.dumps(run_tree(args[1])), flush=True)
         return 0
+    if args[:1] == ["--one-api"]:
+        print(json.dumps(run_api(args[1])), flush=True)
+        return 0
+    one = "--one"
     if args[:1] == ["--ptxas"]:
         ptxas_report()
+        args = args[1:]
+    elif args[:1] == ["--api"]:
+        one = "--one-api"
         args = args[1:]
     if not args:
         print(__doc__, file=sys.stderr)
@@ -161,7 +207,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     for tree in args:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree])
+                              one, tree])
         if res.returncode:
             return res.returncode
     return 0

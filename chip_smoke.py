@@ -10,9 +10,10 @@ public API (a 512^3 float32 field compressed at an absolute L-infinity
 tolerance of 1e-3 and decompressed again: segmented, with the one-pass
 GPK kernels, then with the two-pass ones, then with the LPK correction;
 on the flat PYRAMID stream; the default per-group codec at 128^3; the
-512^3 field as float64; then with s-norm error control), checks every
-result, and prints the kernels' JSON line, the card's line and a last
-line ``{"ok": true, "device": {...}}``.  Any failure raises and the
+512^3 field as float64; then with s-norm error control; then a 1024^3
+field split into blocks), checks every result, and prints the kernels'
+JSON line, the card's line and a last line ``{"ok": true, "device":
+{...}}``.  Any failure raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 doing anything.
 
@@ -81,20 +82,43 @@ Phases (each prints its wall time):
                  512^3 s = 1 on the flat PYRAMID stream (K12/K11 once);
                  128^3 s = -1 REL 1e-6 (per-group); 256^3 float64 s = 0
                  (wide);
- 12. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 12. multi-block - a 1024^3 float32 field (bench.py's, built in float32
+                 slab by slab), which the default Config splits into two
+                 (512, 1024, 1024) slabs along dim 0: compress and
+                 decompress through the API with the launch counters set
+                 to 0 just before and read just after, L-infinity 1e-3,
+                 twice the launches of one slab compressed alone, whose
+                 sections are block 1's byte for byte; K1-K6 bit for
+                 bit against their plain versions on that slab (K3's
+                 stream the container's, K4 decoding it) and again at
+                 tolerance 1e-6, where the stream passes 2^28 words; the
+                 same container and output with one block in flight (the
+                 serial order) and at the default depth, timed in turns
+                 (1, 2, 2, 1); the pinned host cache and the process's
+                 peak RSS; one block's device encode/decode by CUDA
+                 events and the encode's peak memory against the JAX
+                 estimate of 4.485x; REL 1e-4 (norm max|v| block by
+                 block); at 512^3 Variable slabs (dd_sizes 100, 200, 212)
+                 at s = 0, sqrt(sum_b ||v_b - out_b||_0^2) <= 1e-3, and
+                 N-D blocks of 256^3 (K5/K6 once a block) at L-infinity;
+                 a (16, 4096, 4096) field with adjust_shape, stored as
+                 (256, 256, 4096) and returned in its own shape, K1-K6
+                 bit for bit against their plain versions at that shape;
+ 13. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
                  K5/K6 with K13): the pyramids agree and each container
                  decodes on both within the tolerance; with finite s at
                  65^3 (s = 0) and on a nonuniform (33, 65, 65) grid
                  (s = 1), segmented, each decode on the card through K11;
- 13. summary   - the kernels line, the card line, the ok line.
+ 14. summary   - the kernels line, the card line, the ok line.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -1255,6 +1279,440 @@ def snorm_paths(v_host, main_buf, main_counts):
                              f"{header.lossless}, launches {launched}")
 
 
+# The multi-block phase: a field over Config.max_block_bytes (2 GiB), the
+# size the default compress splits into two (512, 1024, 1024) slabs, and a
+# lopsided field that adjust_shape stores as (256, 256, 4096).
+MB_SHAPE = (1024, 1024, 1024)
+ADJUST_SHAPE = (16, 4096, 4096)
+REL_TOL = 1e-4
+# K2-K4 are checked on a slab at this tolerance too: its stream then
+# passes 2^28 words, which no other check reaches.
+OFFSET_TOL = 1e-6
+DD_SIZES = (100, 200, 212)
+ND_EDGE = 256
+# JAX's footprint estimate per input byte (api.estimate_memory_footprint).
+FOOTPRINT_PER_BYTE = 3.9 * 1.15
+
+
+def smooth_field_slabs(shape, seed=SEED, slab_values=1 << 24):
+    """bench.py's smooth field (three separable cosine modes plus 1e-3
+    Gaussian noise) for a 3-D shape, built in float32 slab by slab along
+    dim 0 so that the host holds the array and one slab's temporaries;
+    the noise is drawn in float32 from one numpy Generator seeded with
+    ``seed``, slab after slab."""
+    n0, n1, n2 = shape
+    rows = max(1, slab_values // (n1 * n2))
+    modes = []
+    for k in (1, 3, 7):
+        c = [np.cos(np.pi * k * np.linspace(0.0, 1.0, n, dtype=np.float32)
+                    + 0.1 * k * (d + 1)).astype(np.float32)
+             for d, n in enumerate(shape)]
+        modes.append((c[0], (c[1][:, None] * c[2][None, :]) / np.float32(k)))
+    rng = np.random.default_rng(seed)
+    out = np.empty(shape, dtype=np.float32)
+    for a in range(0, n0, rows):
+        sl = out[a:a + rows]
+        rng.standard_normal(sl.shape, dtype=np.float32, out=sl)
+        sl *= np.float32(0.001)
+        for c0, plane in modes:
+            sl += c0[a:a + rows, None, None] * plane[None]
+    return out
+
+
+def _card_slabs(*arrays, slab_values=1 << 26):
+    """Matching dim-0 slabs of host arrays, on the card in float64."""
+    import torch
+    n1n2 = int(np.prod(arrays[0].shape[1:]))
+    rows = max(1, slab_values // n1n2)
+    for a in range(0, arrays[0].shape[0], rows):
+        yield [torch.from_numpy(x[a:a + rows]).cuda().double()
+               for x in arrays]
+
+
+def card_max_err(v, out) -> float:
+    """max|v - out| in float64 on the card, slab by slab (NaN if out
+    holds a non-finite value)."""
+    err = 0.0
+    for vs, os_ in _card_slabs(v, out):
+        d = float((os_ - vs).abs().max())
+        err = d if d != d else max(err, d)
+        if err != err:
+            break
+    return err
+
+
+def card_max_abs(v) -> float:
+    """max|v| on the card, slab by slab."""
+    return max(float(vs.abs().max()) for (vs,) in _card_slabs(v))
+
+
+def round_trip(label, v, tol, **kw):
+    """One API compress and decompress with the launch counters set to 0
+    just before and read just after: (container, header, sections,
+    output, counts, compress s, decompress s)."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    buf = mt.compress(v, tol, **kw)
+    t1 = time.perf_counter()
+    out = mt.decompress(buf)
+    t2 = time.perf_counter()
+    counts = _build.launch_counts()
+    header, sections = fmt.read_container(buf)
+    if out.shape != v.shape or out.dtype != v.dtype:
+        raise AssertionError(f"{label}: output {out.shape} {out.dtype}")
+    log(f"{label}: {v.shape} {v.dtype} -> stored {header.shape}, "
+        f"{header.dd_nblocks} blocks (dd_dim {header.dd_dim}, edges "
+        f"{header.dd_edges}, grid {header.dd_grid}), {len(buf)} bytes, "
+        f"ratio {v.nbytes / len(buf)!r}; API compress "
+        f"{1e3 * (t1 - t0):.3f} ms, decompress {1e3 * (t2 - t1):.3f} ms "
+        f"(host clock, numpy in and out); launches {counts}")
+    return buf, header, sections, out, counts, t1 - t0, t2 - t1
+
+
+def block_device_times(comp, vb, header, sections):
+    """One block's device encode and decode by CUDA events, and the
+    encode's peak device memory (the block's input counted, as in the
+    JAX estimate) over the block's bytes."""
+    import torch
+
+    bound = header.tolerance
+    outs = comp.encode_device(vb, bound)          # tables made, warm
+    del outs
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = comp.encode_device(vb, bound)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + vb.nbytes
+    del outs
+    exps, words = comp.stream_tensors(header, sections)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    comp.decode_device(exps, words, bound)
+    torch.cuda.synchronize()
+    dec_peak = torch.cuda.max_memory_allocated() - before
+    enc_ms = cuda_ms(lambda: comp.encode_device(vb, bound), 3)
+    dec_ms = cuda_ms(lambda: comp.decode_device(exps, words, bound), 3)
+    del exps, words
+    torch.cuda.empty_cache()
+    gb = vb.nbytes / 1e9
+    log(f"block {tuple(vb.shape)}: device encode {enc_ms:.3f} ms "
+        f"({gb / enc_ms * 1e3:.2f} GB/s), decode {dec_ms:.3f} ms "
+        f"({gb / dec_ms * 1e3:.2f} GB/s) (CUDA events); encode peak "
+        f"{peak} bytes = {peak / vb.nbytes:.4f}x the block's "
+        f"{vb.nbytes} bytes (JAX estimate {FOOTPRINT_PER_BYTE:.4f}x), "
+        f"decode peak above its input {dec_peak} bytes = "
+        f"{dec_peak / vb.nbytes:.4f}x")
+    if not peak <= FOOTPRINT_PER_BYTE * vb.nbytes:
+        log(f"block {tuple(vb.shape)}: the encode's peak exceeds the JAX "
+            "estimate")
+
+
+def host_memory(label):
+    """Log PyTorch's pinned host cache (bytes held now, at the peak and
+    in all since the last reset, allocations and frees and the
+    microseconds they took) and the process's peak resident set."""
+    import torch
+    stats = {}
+    if hasattr(torch.cuda, "host_memory_stats"):
+        stats = {k: v for k, v in torch.cuda.host_memory_stats().items()
+                 if k.startswith(("allocated_bytes.", "num_host_",
+                                  "host_alloc_time.total",
+                                  "host_free_time.total"))}
+    peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
+    log(f"{label}: pinned host cache {stats}; process peak RSS "
+        f"{peak_rss} bytes")
+
+
+def check_block_kernels(label, comp, v, tol, sections=None) -> int:
+    """K1-K6 bit for bit against their plain versions at one block's own
+    shape: K1, K5 and K6 at every level of the block's decomposition
+    that their gates admit, K2-K4 on its pyramid quantized at ``tol``.
+    With ``sections`` (the block's in a container), K3's stream must be
+    theirs, and K4 and its plain version decode the container's own
+    words.  Returns the stream's word count."""
+    import torch
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
+    from mgard_tpu_torch.ops import extract_kernels as xk, transform
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+    from mgard_tpu_torch.ops.quantize import inverse_quantum, \
+        supremum_quantum
+
+    hier, C = comp.hier, comp.chunk_groups
+    errs = {k: [] for k in ("extract_coarse_3d", "gpk_detail",
+                            "gpk_prolong_add")}
+    A = v
+    for l in range(hier.L, 0, -1):
+        if xk.extract_supported(hier, l, A):
+            errs["extract_coarse_3d"].append(max_abs_diff(
+                xk.extract_coarse_3d(hier, A, l),
+                xk.extract_coarse_3d_plain(A, xk._coarse_index(hier, l,
+                                                               A.device))))
+        Cl = transform._extract_old_all(hier, A, l)
+        if sk.gpk_supported(hier, l, A):
+            det = sk.gpk_detail(hier, A, l)
+            errs["gpk_detail"].append(max_abs_diff(
+                det, sk.gpk_detail_plain(hier, A, l)))
+            errs["gpk_prolong_add"].append(max_abs_diff(
+                sk.gpk_prolong_add(hier, Cl, det, l),
+                sk.gpk_prolong_add_plain(hier, Cl, det, l)))
+        else:
+            det = A - transform._prolong_all(hier, Cl, l)
+        A = Cl + transform._correction(hier, det, l)
+        del Cl, det
+    del A
+
+    pyr = [p.reshape(-1).contiguous() for p in transform.decompose(hier, v)]
+    inv_q = float(inverse_quantum(hier, tol))
+    quantum = float(supremum_quantum(hier, tol))
+    ncs = [bitplane.num_chunks_tiled(p.numel(), C) for p in pyr]
+    starts = np.concatenate([[0], np.cumsum(ncs)]).astype(int)
+    zmax, flags = bk.bp_quant_max_segments(pyr, ncs, C, inv_q)
+    errs["bp_quant_max"] = [max_abs_diff(g, w) for g, w in zip(
+        (zmax, flags), bk.bp_quant_max_segments_plain(pyr, ncs, C, inv_q))]
+    if int(flags.max()):
+        raise AssertionError(f"{label}: nonzero codec status at tol {tol}")
+    e = bitplane._bit_length32(zmax)
+    offsets = bitplane._offsets(e)
+    nwords = int(e.sum()) * C
+    words = torch.zeros(sum(ncs) * 33 * C, dtype=torch.int32,
+                        device=v.device)
+    words_plain = torch.zeros_like(words)
+    for fn, buf in ((bk.bp_quant_condense, words),
+                    (bk.bp_quant_condense_plain, words_plain)):
+        for p, nc, a in zip(pyr, ncs, starts):
+            fn(p, nc, C, inv_q, offsets[a:a + nc], e[a:a + nc], buf)
+    errs["bp_quant_condense"] = [max_abs_diff(words, words_plain)]
+    del words_plain
+    stream = words[:nwords]
+    if sections is not None:
+        stored = np.frombuffer(sections[0], dtype=np.uint8)
+        e_host = e.cpu().numpy()
+        stream = torch.from_numpy(
+            np.frombuffer(sections[1], dtype="<i4").astype(np.int32)).cuda()
+        if not (np.array_equal(e_host[:len(stored)], stored)
+                and not e_host[len(stored):].any()
+                and torch.equal(stream, words[:nwords])):
+            raise AssertionError(f"{label}: K3's stream is not the "
+                                 "container's")
+    del words
+    errs["bp_decode_condense_f32"] = [
+        max_abs_diff(bk.bp_decode_condense_f32(stream, C, offsets[a:a + nc],
+                                               e[a:a + nc], quantum,
+                                               p.numel()),
+                     bk.bp_decode_condense_f32_plain(
+                         stream, C, offsets[a:a + nc], e[a:a + nc], quantum,
+                         p.numel()))
+        for p, nc, a in zip(pyr, ncs, starts)]
+    del stream, pyr
+    torch.cuda.empty_cache()
+    log(f"{label}: {tuple(v.shape)} at tol {tol}: K1-K6 against their "
+        f"plain versions (tolerance 0, one entry a level or segment): "
+        f"{errs}; {len(ncs)} segments, {sum(ncs)} chunks, {nwords} stream "
+        f"words (2^28 = {1 << 28}, 2^31 = {1 << 31})"
+        + ("; K3's stream is the container's and K4 decoded it"
+           if sections is not None else ""))
+    bad = {k: x for k, x in errs.items() if not x or any(y != 0.0 for y in x)}
+    if bad:
+        raise AssertionError(f"{label}: kernels missing or differing from "
+                             f"their plain versions: {bad}")
+    return nwords
+
+
+def multiblock_default(v):
+    """The default compress of the 1024^3 field: two slabs along dim 0,
+    L-infinity 1e-3, twice one slab's launches, block 1's sections those
+    of a one-domain compress of its slab, the same bytes at pipeline
+    depth 1 as at 2 (timed in turns), one block's device times and peak
+    memory."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch import api
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build
+
+    budget = api._device_memory_budget(torch.device("cuda"))
+    nb = api.plan_blocks(v.shape, v.dtype, mt.Config(), "cuda")
+    log(f"plan: budget {budget} bytes (free + cached unused), estimate "
+        f"{mt.estimate_memory_footprint(v.shape, v.dtype)} bytes, "
+        f"{nb} blocks")
+    for reset in ("reset_peak_host_memory_stats",
+                  "reset_accumulated_host_memory_stats"):
+        if hasattr(torch.cuda, reset):
+            getattr(torch.cuda, reset)()
+    buf, header, sections, out, counts, _, _ = round_trip(
+        "multi-block default", v, TOL)
+    host_memory("after the multi-block round trip")
+    err = card_max_err(v, out)
+    log(f"multi-block default: max|v - out| = {err!r} (tolerance {TOL})")
+    if (header.dd_nblocks, header.dd_dim, header.dd_edges, header.dd_grid,
+            len(sections)) != (2, 0, None, None, 4) or nb != 2:
+        raise AssertionError(f"expected 2 slabs along dim 0: {header}")
+    if not err <= TOL:
+        raise AssertionError(f"multi-block error {err} exceeds {TOL}")
+
+    # block 1 against a one-domain compress of its slab
+    half = v.shape[0] // 2
+    slab = v[half:]
+    comp = mt.get_compressor(slab.shape, v.dtype, config=mt.Config().replace(
+        lossless=mt.Lossless(header.lossless), adapt_lossless=False))
+    _build.reset_launches()
+    single = comp.compress(slab, header.tolerance)
+    one_out = mt.decompress(single)
+    slab_counts = _build.launch_counts()
+    sh, ss = fmt.read_container(single)
+    same = ss == sections[2:4]
+    log(f"slab {slab.shape} alone: launches {slab_counts}; its sections "
+        f"are block 1's byte for byte: {same}")
+    if not same:
+        raise AssertionError("block 1's sections differ from a one-domain "
+                             "compress of its slab")
+    if counts != {k: 2 * n for k, n in slab_counts.items()}:
+        raise AssertionError(f"multi-block launches {counts} are not twice "
+                             f"one slab's {slab_counts}")
+    missing = [k for k in SEGMENTED_KERNELS if not counts[k]]
+    if missing:
+        raise AssertionError(f"not launched on the multi-block path: "
+                             f"{missing}")
+    del one_out
+    vb = torch.from_numpy(slab).cuda()
+    block_device_times(comp, vb, sh, ss)
+    check_block_kernels("slab kernels", comp, vb, header.tolerance, ss)
+    nwords = check_block_kernels("slab kernels", comp, vb, OFFSET_TOL)
+    if not nwords > 1 << 28:
+        raise AssertionError(f"the stream at tol {OFFSET_TOL} holds "
+                             f"{nwords} words, not over 2^28")
+    del vb, single
+
+    # one block in flight (the serial order, which no setting gives: the
+    # JAX package's rule keeps ndev + 1 = 2 on one card) against the
+    # default depth, in turns
+    saved = api._pipeline_depth
+    default = saved(1)
+    try:
+        for depth in (1, default, default, 1):
+            api._pipeline_depth = lambda ndev, d=depth: d
+            t0 = time.perf_counter()
+            b = mt.compress(v, TOL)
+            t1 = time.perf_counter()
+            o = mt.decompress(b)
+            t2 = time.perf_counter()
+            same = b == buf and np.array_equal(o, out)
+            log(f"{depth} block(s) in flight: compress "
+                f"{1e3 * (t1 - t0):.3f} ms, decompress "
+                f"{1e3 * (t2 - t1):.3f} ms (host clock); container and "
+                f"output the default's: {same}")
+            del o
+            if not same:
+                raise AssertionError(f"depth {depth} writes another "
+                                     "container or output")
+    finally:
+        api._pipeline_depth = saved
+    del out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def multiblock_rel(v):
+    """REL 1e-4 at L-infinity on the 1024^3 field: the norm is max|v| in
+    float32, taken block by block on the card."""
+    vmax = card_max_abs(v)
+    _, header, _, out, _, _, _ = round_trip("multi-block REL", v, REL_TOL,
+                                            mode="rel")
+    err = card_max_err(v, out)
+    bound = REL_TOL * header.norm
+    log(f"multi-block REL: norm {header.norm!r} (max|v| {vmax!r}), "
+        f"max|v - out| = {err!r} (bound {bound!r})")
+    if header.norm != float(np.float32(vmax)):
+        raise AssertionError(f"REL norm {header.norm} is not max|v| {vmax}")
+    if not err <= bound:
+        raise AssertionError(f"REL error {err} exceeds {bound}")
+
+
+def variable_and_nd_blocks(v512):
+    """At 512^3: Variable slabs (dd_sizes) at s = 0, each block's
+    ||v_b - out_b||_0 on the card, combined as sqrt(sum of squares) within
+    1e-3; N-D blocks of ND_EDGE^3 at L-infinity, K5 and K6 once a
+    block."""
+    import mgard_tpu_torch as mt
+
+    _, header, _, out, _, _, _ = round_trip(
+        "Variable slabs", v512, TOL, s=0.0,
+        config=mt.Config(dd_sizes=DD_SIZES))
+    edges = np.concatenate([[0], np.cumsum(DD_SIZES)])
+    errs = [snorm_error(mt.Hierarchy(v512[a:b].shape), out[a:b], v512[a:b],
+                        0.0) for a, b in zip(edges[:-1], edges[1:])]
+    total = float(np.sqrt(np.sum(np.square(errs))))
+    log(f"Variable slabs: ||v_b - out_b||_0 = {errs} (block bound "
+        f"{header.tolerance!r}), combined {total!r} (tolerance {TOL})")
+    if header.dd_edges != tuple(int(x) for x in edges) \
+            or not total <= TOL:
+        raise AssertionError(f"Variable slabs: edges {header.dd_edges}, "
+                             f"combined error {total}")
+    del out
+
+    _, header, _, out, counts, _, _ = round_trip(
+        "N-D blocks", v512, TOL,
+        config=mt.Config(dd_method="block", block_edge=ND_EDGE))
+    err = card_max_err(v512, out)
+    grid = tuple(-(-n // ND_EDGE) for n in v512.shape)
+    nblocks = int(np.prod(grid))
+    log(f"N-D blocks: max|v - out| = {err!r} (tolerance {TOL})")
+    if header.dd_grid != grid or header.dd_nblocks != nblocks \
+            or counts["gpk_detail"] != nblocks \
+            or counts["gpk_prolong_add"] != nblocks or not err <= TOL:
+        raise AssertionError(f"N-D blocks: grid {header.dd_grid}, error "
+                             f"{err}, launches {counts}")
+
+
+def adjust_shape_path():
+    """A lopsided field with Config(adjust_shape=True): stored in the
+    rebalanced shape, returned in its own; K1-K6 against their plain
+    versions at the stored shape."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch import api
+
+    w = smooth_field_slabs(ADJUST_SHAPE, seed=SEED + 1)
+    _, header, sections, out, _, _, _ = round_trip(
+        "adjust_shape", w, TOL, config=mt.Config(adjust_shape=True))
+    err = card_max_err(w, out)
+    log(f"adjust_shape: orig_shape {header.orig_shape}, max|v - out| = "
+        f"{err!r} (tolerance {TOL})")
+    if header.shape != api.adjust_shape(ADJUST_SHAPE) \
+            or header.shape == ADJUST_SHAPE \
+            or header.orig_shape != ADJUST_SHAPE or not err <= TOL:
+        raise AssertionError(f"adjust_shape: stored {header.shape}, "
+                             f"orig_shape {header.orig_shape}, error {err}")
+    del out
+    vw = torch.from_numpy(w.reshape(header.shape)).cuda()
+    check_block_kernels("adjust_shape kernels", api.compressor_for(header),
+                        vw, header.tolerance, sections)
+
+
+def multiblock_paths(v512):
+    """The multi-block phase (see the module docstring)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v = smooth_field_slabs(MB_SHAPE)
+    log(f"multi-block field {MB_SHAPE} float32, {v.nbytes} bytes, built "
+        f"in {time.perf_counter() - t0:.3f} s on the host")
+    counts = multiblock_default(v)
+    multiblock_rel(v)
+    del v
+    variable_and_nd_blocks(v512)
+    adjust_shape_path()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def snorm_reference_check(shape, seed, s, uniform=True, tol=1e-3):
     """Card against CPU with finite ``s`` on the segmented stream
     (adapt_lossless=False): the containers made on each decode on both
@@ -1439,6 +1897,9 @@ def main() -> int:
     with Phase("s-norm"):
         snorm_paths(v_host, buf, counts)
     del buf
+
+    with Phase("multi-block"):
+        multiblock_paths(v_host)
 
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)

@@ -17,12 +17,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .api import compress, decompress  # noqa: E402
+from .api import (compress, decompress, estimate_memory_footprint,  # noqa: E402
+                  release_cache)
 from .config import Config, ErrorMode, Layout, Lossless  # noqa: E402
 from .hierarchy import Hierarchy  # noqa: E402
 from .models.compressor import Compressor, get_compressor  # noqa: E402
 
-__all__ = ["compress", "decompress", "Compressor", "get_compressor",
+__all__ = ["compress", "decompress", "release_cache",
+           "estimate_memory_footprint", "Compressor", "get_compressor",
            "Hierarchy", "Config", "ErrorMode", "Layout", "Lossless"]
 
 __version__ = "0.1.0"

@@ -91,3 +91,7 @@ class Config:
     # Codec chunk width (groups per chunk) for new containers; 0 = the
     # default.  Containers record it, and decode honours the recorded one.
     chunk_groups: int = 0
+
+    def replace(self, **kw) -> "Config":
+        """A copy with the fields ``kw`` changed."""
+        return dataclasses.replace(self, **kw)

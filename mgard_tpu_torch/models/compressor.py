@@ -20,9 +20,16 @@ Two routes, chosen as the JAX package chooses them:
 
 Device work is :meth:`Compressor.encode_device` and
 :meth:`Compressor.decode_device`; host code reads back the variable-length
-stream and assembles the container.  A round trip syncs with the device
-three times: the status and word count, the stream's read-back, and the
-decoded array's ``.cpu()``.
+stream and assembles the container.  Read-backs run on a copy stream of
+their own, into pinned host buffers, each after an event recorded behind
+the work that made its tensors (:class:`ReadBack`), so that
+:meth:`Compressor.encode_async` and :meth:`Compressor.decode_async`
+return at once and the multi-block pipeline (``api.py``) reads block i
+back while block i + 1 runs, one block's pinned buffers at a time.  A
+one-domain decode reads its array back with a plain ``.cpu()`` into the
+array it returns.  A round trip waits on the device three times: the
+status, word count and exponents, the stream's words, and the decoded
+array.
 
 Branches of the JAX package that the port does not have yet (the FINE
 and LEVEL_BLOCKS layouts, the SINGLEDIM and HYBRID
@@ -76,6 +83,60 @@ def _corrupted(what: str):
     return ValueError(f"corrupted buffer: {what}")
 
 
+@functools.lru_cache(maxsize=None)
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream that reads results back from ``device``, one a device."""
+    return torch.cuda.Stream(device)
+
+
+class ReadBack:
+    """Host copies of device tensors, read on the device's copy stream
+    into pinned buffers after the event ``ready`` (by default one
+    recorded now on the device's current stream, behind the work that
+    made them), so that they wait for that work alone and not for work
+    queued after it.  The copies are queued by the first :meth:`wait`,
+    which then waits for them: a pipeline thus holds one block's pinned
+    buffers at a time, and the caching host allocator hands the next
+    block the same ones.  On the CPU the tensors are their own host
+    copies."""
+
+    def __init__(self, device: torch.device, tensors, ready=None):
+        self.device, self.tensors, self.host = device, list(tensors), None
+        if device.type != "cuda":
+            self.ready, self.host = None, self.tensors
+            return
+        if ready is None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        self.ready = ready
+
+    def wait(self) -> list:
+        if self.host is None:
+            stream = _copy_stream(self.device)
+            stream.wait_event(self.ready)
+            with torch.cuda.stream(stream):
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        for t in self.tensors]
+                for h, t in zip(host, self.tensors):
+                    h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+            done.synchronize()
+            # the device tensors were held until their copies had read them
+            self.host, self.tensors = host, None
+        return self.host
+
+
+def norm_of(v: torch.Tensor, s: float) -> torch.Tensor:
+    """The norm that REL mode scales the tolerance by
+    (``compressor.py:389``): max|v| for L-infinity control, else the root
+    of the sum of squares, summed in float64 and cast to the data's
+    dtype."""
+    if math.isinf(s):
+        return v.abs().max()
+    return torch.sqrt(torch.sum(v.double() ** 2)).to(v.dtype)
+
+
 class Compressor:
     """Error-bounded compressor for one fixed (shape, dtype, grid) on one
     device."""
@@ -126,16 +187,16 @@ class Compressor:
     def _check_ported(self, lossless: Lossless) -> None:
         if self.config.decomposition != Decomposition.MULTIDIM:
             raise _not_ported(f"the {self.config.decomposition.name} "
-                              "decomposition", "queue A, item 1")
+                              "decomposition", "queue A, item 4")
         if self.config.layout not in (Layout.PYRAMID, Layout.PYRAMID_SEG):
             raise _not_ported(f"the {self.config.layout.name} layout",
-                              "queue A, item 1")
+                              "queue A, item 3")
         if lossless in _HOST_LOSSLESS:
             raise _not_ported(f"the host lossless {lossless.name}",
-                              "queue A, item 4")
+                              "queue A, item 5")
         if lossless.second_stage is not None:
             raise _not_ported(f"the {lossless.second_stage} second stage",
-                              "queue A, item 4")
+                              "queue A, item 5")
 
     # ------------------------------------------------------------------
     # the flat stream
@@ -229,44 +290,66 @@ class Compressor:
     # ------------------------------------------------------------------
     # host-facing API
     # ------------------------------------------------------------------
-    def sections_from_outputs(self, exponents, words, count,
-                              status) -> List[bytes]:
-        """Read back the device encode outputs and build the container
-        sections: [exponent bytes, word bytes]."""
-        count, status = (int(x) for x in torch.stack(
-            [count.to(torch.int64), status.to(torch.int64)]).tolist())
+    def read_back_outputs(self, exponents, words, count, status):
+        """The handle that :meth:`finalize_sections` takes: the read-back
+        of the exponents, word count and status, behind an event recorded
+        now, and the words, whose length is the count."""
+        small = torch.stack([count.to(torch.int64), status.to(torch.int64)])
+        return words, ReadBack(self.device, [exponents, small])
+
+    def finalize_sections(self, handle) -> List[bytes]:
+        """Wait for a handle's read-back and build the container sections:
+        [exponent bytes, word bytes].  Waits on the handle's copies, not on
+        the device."""
+        words, small = handle
+        exp_host, count_status = small.wait()
+        count, status = (int(x) for x in count_status.tolist())
         _raise_status(status)
         if not 0 <= count <= words.numel():
             raise RuntimeError(f"encode word count {count} exceeds capacity "
                                f"{words.numel()}")
-        exp_np = exponents.cpu().numpy()
-        words_np = words[:count].cpu().numpy()
+        (words_host,) = ReadBack(self.device, [words[:count]],
+                                 small.ready).wait()
+        exp_np = exp_host.numpy()
         # Trailing all-zero chunks (groups) carry no stream words; drop
         # their exponent bytes (the decoder zero-fills back to the full
         # count).
         nz = np.nonzero(exp_np)[0]
         exp_np = exp_np[:int(nz[-1]) + 1] if len(nz) else exp_np[:0]
-        return [exp_np.tobytes(), words_np.astype("<i4").tobytes()]
+        return [exp_np.tobytes(),
+                np.ascontiguousarray(words_host.numpy(), "<i4").tobytes()]
+
+    def sections_from_outputs(self, exponents, words, count,
+                              status) -> List[bytes]:
+        """Read back the device encode outputs and build the container
+        sections, at once."""
+        return self.finalize_sections(
+            self.read_back_outputs(exponents, words, count, status))
+
+    def encode_async(self, v, abs_tol: float):
+        """Queue the device encode of ``v`` (numpy or torch) and return
+        at once: the handle that :meth:`finalize_sections` takes."""
+        return self.read_back_outputs(
+            *self.encode_device(self._as_tensor(v), abs_tol))
+
+    @staticmethod
+    def to_device(v, dtype, device) -> torch.Tensor:
+        """``v`` (numpy or torch) as a tensor of ``dtype`` on ``device``."""
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=TORCH_DTYPE[np.dtype(dtype)])
+        return torch.from_numpy(np.ascontiguousarray(v, dtype=dtype)
+                                ).to(device)
 
     def _as_tensor(self, v) -> torch.Tensor:
-        if isinstance(v, torch.Tensor):
-            t = v.to(device=self.device, dtype=TORCH_DTYPE[self.dtype])
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(
-                v, dtype=self.dtype)).to(self.device)
+        t = self.to_device(v, self.dtype, self.device)
         if tuple(t.shape) != self.hier.shape:
             raise ValueError(f"expected shape {self.hier.shape}, got "
                              f"{tuple(t.shape)}")
         return t
 
     def norm(self, v: torch.Tensor) -> torch.Tensor:
-        """The norm that REL mode scales the tolerance by
-        (``compressor.py:389``): max|v| for L-infinity control, else the
-        root of the sum of squares, summed in float64 and cast to the
-        data's dtype."""
-        if math.isinf(self.s):
-            return v.abs().max()
-        return torch.sqrt(torch.sum(v.double() ** 2)).to(v.dtype)
+        """:func:`norm_of` at this compressor's ``s``."""
+        return norm_of(v, self.s)
 
     def compress(self, v, tolerance: float,
                  mode: ErrorMode = ErrorMode.ABS) -> bytes:
@@ -292,7 +375,9 @@ class Compressor:
 
     def decompress_parsed(self, header: fmt.Header,
                           sections: List[bytes]) -> np.ndarray:
-        return self.decode_async(header, sections).cpu().numpy()
+        exponents, words = self.stream_tensors(header, sections)
+        return self.decode_device(exponents, words, header.tolerance,
+                                  Lossless(header.lossless)).cpu().numpy()
 
     def _stream_geometry(self, codec: str) -> Tuple[int, int, int]:
         """(exponent count, words per exponent unit, most planes a unit)
@@ -340,12 +425,12 @@ class Compressor:
                 torch.from_numpy(words).to(self.device))
 
     def decode_async(self, header: fmt.Header, sections: List[bytes]
-                     ) -> torch.Tensor:
-        """Decode a parsed container to a tensor on the device, without
-        reading it back."""
+                     ) -> ReadBack:
+        """Queue the device decode of a parsed container and return at
+        once: a :class:`ReadBack` of the array."""
         exponents, words = self.stream_tensors(header, sections)
-        return self.decode_device(exponents, words, header.tolerance,
-                                  Lossless(header.lossless))
+        return ReadBack(self.device, [self.decode_device(
+            exponents, words, header.tolerance, Lossless(header.lossless))])
 
 
 @functools.lru_cache(maxsize=32)

@@ -148,13 +148,26 @@ def lib():
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one launcher on PyTorch's current stream and raise on any
+def device_of(name: str, *tensors):
+    """The one CUDA device that ``tensors`` lie on; raise if they lie on
+    several, or off CUDA."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        found = ", ".join(sorted(map(str, devices)))
+        raise ValueError(f"{name}: the tensors must lie on one CUDA device; "
+                         f"they lie on {found}")
+    return devices.pop()
+
+
+def launch(name: str, *args, device) -> None:
+    """Call one launcher under ``device`` (the device of the tensors it
+    reads and writes), on that device's current stream, and raise on any
     launch error (a refused launch never runs, and a later synchronize
     would not report it)."""
     import torch
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")

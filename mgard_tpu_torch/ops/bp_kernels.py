@@ -160,13 +160,13 @@ def _unzigzag(z: torch.Tensor) -> torch.Tensor:
     return (z >> 1) ^ -(z & 1)
 
 
-def _check_cuda(name: str, *tensors) -> None:
+def _check_cuda(name: str, *tensors) -> torch.device:
+    """The one CUDA device of ``tensors``, which must be contiguous."""
+    device = _build.device_of(name, *tensors)
     for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name}: tensors must all be on CUDA, got "
-                             f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return device
 
 
 def _check_chunks(seg, nchunks, C):
@@ -219,14 +219,10 @@ def bp_quant_max_segments_plain(segs, ncs, C: int, inv_q: float):
 def _quant_max_launch(segs, ncs, C: int, inv_q: float):
     """One K2 launch over ``segs`` (contiguous float32 CUDA tensors on
     one device), counted on :func:`bp_quant_max`."""
-    _check_cuda("bp_quant_max", *segs)
-    devices = {s.device for s in segs}
-    if len(devices) > 1:
-        raise ValueError("bp_quant_max: segments on "
-                         f"{sorted(map(str, devices))}")
+    device = _check_cuda("bp_quant_max", *segs)
     total = sum(ncs)
-    zmax = torch.empty(total, dtype=torch.int32, device=segs[0].device)
-    status = torch.empty(total, dtype=torch.int32, device=segs[0].device)
+    zmax = torch.empty(total, dtype=torch.int32, device=device)
+    status = torch.empty(total, dtype=torch.int32, device=device)
     if total == 0:
         return zmax, status
     k = len(segs)
@@ -235,7 +231,8 @@ def _quant_max_launch(segs, ncs, C: int, inv_q: float):
     chunks = (ctypes.c_int * k)(*ncs)
     _build.launch("mgard_bp_quant_max_segments", ctypes.addressof(ptrs),
                   ctypes.addressof(ns), ctypes.addressof(chunks), k, C,
-                  float(inv_q), zmax.data_ptr(), status.data_ptr())
+                  float(inv_q), zmax.data_ptr(), status.data_ptr(),
+                  device=device)
     bp_quant_max.launches += 1
     return zmax, status
 
@@ -294,13 +291,13 @@ def bp_quant_condense(seg: torch.Tensor, nchunks: int, C: int,
     if seg.device.type == "cpu":
         return bp_quant_condense_plain(seg, nchunks, C, inv_q, offsets, e,
                                        words)
-    _check_cuda("bp_quant_condense", seg, offsets, e, words)
+    device = _check_cuda("bp_quant_condense", seg, offsets, e, words)
     if offsets.dtype != torch.int32 or e.dtype != torch.int32 \
             or words.dtype != torch.int32:
         raise ValueError("offsets, e and words must be int32")
     _build.launch("mgard_bp_quant_condense", seg.data_ptr(), seg.numel(),
                   nchunks, C, float(inv_q), offsets.data_ptr(), e.data_ptr(),
-                  words.data_ptr())
+                  words.data_ptr(), device=device)
     bp_quant_condense.launches += 1
 
 
@@ -331,14 +328,14 @@ def bp_decode_condense_f32(words: torch.Tensor, C: int,
         raise ValueError("the stream must hold whole C-word rows")
     if words.device.type == "cpu":
         return bp_decode_condense_f32_plain(words, C, offsets, e, quantum, n)
-    _check_cuda("bp_decode_condense_f32", words, offsets, e)
+    device = _check_cuda("bp_decode_condense_f32", words, offsets, e)
     if offsets.dtype != torch.int32 or e.dtype != torch.int32 \
             or words.dtype != torch.int32:
         raise ValueError("offsets, e and words must be int32")
     out = torch.empty(n, dtype=torch.float32, device=words.device)
     _build.launch("mgard_bp_decode_condense_f32", words.data_ptr(), nchunks,
                   C, offsets.data_ptr(), e.data_ptr(), float(quantum),
-                  out.data_ptr(), n)
+                  out.data_ptr(), n, device=device)
     bp_decode_condense_f32.launches += 1
     return out
 
@@ -379,9 +376,10 @@ def bp_encode_condense(z: torch.Tensor, offsets: torch.Tensor,
     nchunks, _, C = z.shape
     if z.device.type == "cpu":
         return bp_encode_condense_plain(z, offsets, e, words)
-    _check_cuda("bp_encode_condense", z, offsets, e, words)
+    device = _check_cuda("bp_encode_condense", z, offsets, e, words)
     _build.launch("mgard_bp_encode_condense", z.data_ptr(), nchunks, C,
-                  offsets.data_ptr(), e.data_ptr(), words.data_ptr())
+                  offsets.data_ptr(), e.data_ptr(), words.data_ptr(),
+                  device=device)
     bp_encode_condense.launches += 1
 
 
@@ -409,10 +407,11 @@ def bp_decode_condense(words: torch.Tensor, C: int, offsets: torch.Tensor,
         raise ValueError("the stream must hold whole C-word rows")
     if words.device.type == "cpu":
         return bp_decode_condense_plain(words, C, offsets, e, n)
-    _check_cuda("bp_decode_condense", words, offsets, e)
+    device = _check_cuda("bp_decode_condense", words, offsets, e)
     out = torch.empty(n, dtype=torch.int32, device=words.device)
     _build.launch("mgard_bp_decode_condense", words.data_ptr(), nchunks, C,
-                  offsets.data_ptr(), e.data_ptr(), out.data_ptr(), n)
+                  offsets.data_ptr(), e.data_ptr(), out.data_ptr(), n,
+                  device=device)
     bp_decode_condense.launches += 1
     return out
 
@@ -450,14 +449,14 @@ def bp_quant_zigzag(seg: torch.Tensor, nchunks: int, C: int, inv_q: float):
     _check_chunks(seg, nchunks, C)
     if seg.device.type == "cpu":
         return bp_quant_zigzag_plain(seg, nchunks, C, inv_q)
-    _check_cuda("bp_quant_zigzag", seg)
+    device = _check_cuda("bp_quant_zigzag", seg)
     z = torch.empty((nchunks, GROUP, C), dtype=torch.int32,
                     device=seg.device)
     zmax = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
     status = torch.zeros(nchunks, dtype=torch.int32, device=seg.device)
     _build.launch("mgard_bp_quant_zigzag", seg.data_ptr(), seg.numel(),
                   nchunks, C, float(inv_q), z.data_ptr(), zmax.data_ptr(),
-                  status.data_ptr())
+                  status.data_ptr(), device=device)
     bp_quant_zigzag.launches += 1
     return z, zmax, status
 
@@ -484,9 +483,10 @@ def bp_condense_into(z: torch.Tensor, offsets: torch.Tensor,
     nchunks, _, C = z.shape
     if z.device.type == "cpu":
         return bp_condense_into_plain(z, offsets, e, words)
-    _check_cuda("bp_condense_into", z, offsets, e, words)
+    device = _check_cuda("bp_condense_into", z, offsets, e, words)
     _build.launch("mgard_bp_condense_into", z.data_ptr(), nchunks, C,
-                  offsets.data_ptr(), e.data_ptr(), words.data_ptr())
+                  offsets.data_ptr(), e.data_ptr(), words.data_ptr(),
+                  device=device)
     bp_condense_into.launches += 1
 
 
@@ -526,13 +526,14 @@ def bp_encode_core(q: torch.Tensor):
     nchunks = q.shape[0]
     if q.device.type == "cpu":
         return bp_encode_core_plain(q)
-    _check_cuda("bp_encode_core", q)
+    device = _check_cuda("bp_encode_core", q)
     planes = torch.empty_like(q)
     sign = torch.empty((nchunks, CORE_LANES), dtype=torch.int32,
                        device=q.device)
     e = torch.empty(nchunks, dtype=torch.int32, device=q.device)
     _build.launch("mgard_bp_encode_core", q.data_ptr(), nchunks,
-                  planes.data_ptr(), sign.data_ptr(), e.data_ptr())
+                  planes.data_ptr(), sign.data_ptr(), e.data_ptr(),
+                  device=device)
     bp_encode_core.launches += 1
     return planes, sign, e
 
@@ -554,9 +555,9 @@ def bp_decode_core(planes: torch.Tensor, sign: torch.Tensor
     _check_core("bp_decode_core", sign, (nchunks, CORE_LANES))
     if planes.device.type == "cpu":
         return bp_decode_core_plain(planes, sign)
-    _check_cuda("bp_decode_core", planes, sign)
+    device = _check_cuda("bp_decode_core", planes, sign)
     out = torch.empty_like(planes)
     _build.launch("mgard_bp_decode_core", planes.data_ptr(), sign.data_ptr(),
-                  nchunks, out.data_ptr())
+                  nchunks, out.data_ptr(), device=device)
     bp_decode_core.launches += 1
     return out

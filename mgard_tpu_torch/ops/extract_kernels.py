@@ -69,8 +69,7 @@ def extract_coarse_3d(hier: Hierarchy, A: torch.Tensor, l: int
     idx = _coarse_index(hier, l, A.device)
     if A.device.type == "cpu":
         return extract_coarse_3d_plain(A, idx)
-    if not A.is_cuda:
-        raise ValueError(f"extract_coarse_3d: unsupported device {A.device}")
+    device = _build.device_of("extract_coarse_3d", A, *idx)
     if A.dtype != torch.float32 or A.dim() != 3:
         raise ValueError("extract_coarse_3d takes a 3-D float32 tensor")
     A = A.contiguous()
@@ -79,7 +78,7 @@ def extract_coarse_3d(hier: Hierarchy, A: torch.Tensor, l: int
     out = torch.empty(nc, dtype=torch.float32, device=A.device)
     _build.launch("mgard_extract_coarse_3d", A.data_ptr(), out.data_ptr(),
                   idx[0].data_ptr(), idx[1].data_ptr(), idx[2].data_ptr(),
-                  n1, n2, nc[0], nc[1], nc[2])
+                  n1, n2, nc[0], nc[1], nc[2], device=device)
     extract_coarse_3d.launches += 1
     return out
 

@@ -142,9 +142,7 @@ def rm_dim0(hier: Hierarchy, B: torch.Tensor, l: int) -> torch.Tensor:
     shape = tuple(hier.shapes[l])
     if B.device.type == "cpu":
         return rm_dim0_plain(hier, B, l)
-    if not B.is_cuda:
-        raise ValueError(f"rm_dim0: B is on {B.device}, expected the CPU "
-                         "or a CUDA device")
+    device = _build.device_of("rm_dim0", B)
     if B.dtype != torch.float32 or tuple(B.shape) != shape \
             or not B.is_contiguous() or B.data_ptr() % 16:
         raise ValueError(f"rm_dim0: B must be a contiguous, 16-byte aligned "
@@ -153,12 +151,13 @@ def rm_dim0(hier: Hierarchy, B: torch.Tensor, l: int) -> torch.Tensor:
     if not rm0_structure_ok(hier, l):
         raise ValueError(f"rm_dim0: level {l} of {hier.shape} is not a "
                          "front-interleaved, block-tileable level")
-    tab = _device_table(hier, l, B.device)
+    tab = _device_table(hier, l, device)
     fc = hier.dims[0][l].front_nc
     out = torch.empty((tab.shape[0],) + shape[1:], dtype=B.dtype,
                       device=B.device)
     _build.launch("mgard_rm_dim0", B.data_ptr(), tab.data_ptr(),
-                  out.data_ptr(), fc, tab.shape[0], shape[1] * shape[2])
+                  out.data_ptr(), fc, tab.shape[0], shape[1] * shape[2],
+                  device=device)
     rm_dim0.launches += 1
     return out
 

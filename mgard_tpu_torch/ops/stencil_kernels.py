@@ -249,22 +249,17 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check_cuda(name: str, **tensors) -> None:
-    """Each tensor on one CUDA device, contiguous float32 of its shape."""
-    devices = set()
+def _check_cuda(name: str, **tensors) -> torch.device:
+    """The one CUDA device of the tensors, each a contiguous float32
+    tensor of its shape."""
+    device = _build.device_of(name, *(t for t, _ in tensors.values()))
     for arg, (t, shape) in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected the "
-                             "CPU or a CUDA device")
         if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
                 or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous float32 "
                              f"tensor of shape {tuple(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        devices.add(t.device)
-    if len(devices) > 1:
-        raise ValueError(f"{name}: the tensors are on "
-                         f"{sorted(map(str, devices))}")
+    return device
 
 
 def _table_ptrs(hier: Hierarchy, l: int, device, dims=(0, 1, 2)):
@@ -289,10 +284,10 @@ def gpk_detail(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
     if _on_cpu(A):
         return gpk_detail_plain(hier, A, l)
     shape = hier.shapes[l]
-    _check_cuda("gpk_detail", A=(A, shape))
+    device = _check_cuda("gpk_detail", A=(A, shape))
     out = torch.empty_like(A)
     _build.launch("mgard_gpk_detail", A.data_ptr(), out.data_ptr(),
-                  *_table_ptrs(hier, l, A.device), *shape)
+                  *_table_ptrs(hier, l, device), *shape, device=device)
     gpk_detail.launches += 1
     return out
 
@@ -308,14 +303,15 @@ def gpk_prolong_add(hier: Hierarchy, C: torch.Tensor, detail: torch.Tensor,
     if _on_cpu(C, detail):
         return gpk_prolong_add_plain(hier, C, detail, l)
     shape, cshape = hier.shapes[l], hier.shapes[l - 1]
-    _check_cuda("gpk_prolong_add", C=(C, cshape), detail=(detail, shape))
+    device = _check_cuda("gpk_prolong_add", C=(C, cshape),
+                         detail=(detail, shape))
     if not gpk_structure_ok(hier, l):
         raise ValueError(f"gpk_prolong_add: level {l} of {hier.shape} is "
                          "not of the structure the GPK gate admits")
     out = torch.empty_like(detail)
     _build.launch("mgard_gpk_prolong_add", C.data_ptr(), detail.data_ptr(),
-                  out.data_ptr(), *_table_ptrs(hier, l, C.device), *shape,
-                  cshape[1], cshape[2])
+                  out.data_ptr(), *_table_ptrs(hier, l, device), *shape,
+                  cshape[1], cshape[2], device=device)
     gpk_prolong_add.launches += 1
     return out
 
@@ -326,10 +322,11 @@ def run_b20(hier: Hierarchy, A: torch.Tensor, l: int) -> torch.Tensor:
     if _on_cpu(A):
         return run_b20_plain(hier, A, l)
     shape = hier.shapes[l]
-    _check_cuda("run_b20", A=(A, shape))
+    device = _check_cuda("run_b20", A=(A, shape))
     V0 = torch.empty_like(A)
     _build.launch("mgard_b20", A.data_ptr(), V0.data_ptr(),
-                  *_table_ptrs(hier, l, A.device, (0, 2)), *shape)
+                  *_table_ptrs(hier, l, device, (0, 2)), *shape,
+                  device=device)
     run_b20.launches += 1
     return V0
 
@@ -342,10 +339,10 @@ def run_b1sub(hier: Hierarchy, V0: torch.Tensor, A: torch.Tensor, l: int
     if _on_cpu(V0, A):
         return run_b1sub_plain(hier, V0, A, l)
     shape = hier.shapes[l]
-    _check_cuda("run_b1sub", V0=(V0, shape), A=(A, shape))
+    device = _check_cuda("run_b1sub", V0=(V0, shape), A=(A, shape))
     out = torch.empty_like(A)
     _build.launch("mgard_b1sub", V0.data_ptr(), A.data_ptr(), out.data_ptr(),
-                  *_table_ptrs(hier, l, A.device, (1,)), *shape)
+                  *_table_ptrs(hier, l, device, (1,)), *shape, device=device)
     run_b1sub.launches += 1
     return out
 
@@ -357,12 +354,12 @@ def run_dec_b20(hier: Hierarchy, C: torch.Tensor, l: int) -> torch.Tensor:
     if _on_cpu(C):
         return run_dec_b20_plain(hier, C, l)
     cshape = hier.shapes[l - 1]
-    _check_cuda("run_dec_b20", C=(C, cshape))
+    device = _check_cuda("run_dec_b20", C=(C, cshape))
     vshape = _v0_shape(hier, l)
     V0 = torch.empty(vshape, dtype=C.dtype, device=C.device)
     _build.launch("mgard_dec_b20", C.data_ptr(), V0.data_ptr(),
-                  *_table_ptrs(hier, l, C.device, (0, 2)), *vshape,
-                  cshape[2])
+                  *_table_ptrs(hier, l, device, (0, 2)), *vshape,
+                  cshape[2], device=device)
     run_dec_b20.launches += 1
     return V0
 
@@ -375,10 +372,11 @@ def run_dec_b1add(hier: Hierarchy, V0: torch.Tensor, detail: torch.Tensor,
     if _on_cpu(V0, detail):
         return run_dec_b1add_plain(hier, V0, detail, l)
     shape, vshape = hier.shapes[l], _v0_shape(hier, l)
-    _check_cuda("run_dec_b1add", V0=(V0, vshape), detail=(detail, shape))
+    device = _check_cuda("run_dec_b1add", V0=(V0, vshape),
+                         detail=(detail, shape))
     out = torch.empty_like(detail)
     _build.launch("mgard_dec_b1add", V0.data_ptr(), detail.data_ptr(),
-                  out.data_ptr(), *_table_ptrs(hier, l, V0.device, (1,)),
-                  *shape, vshape[1])
+                  out.data_ptr(), *_table_ptrs(hier, l, device, (1,)),
+                  *shape, vshape[1], device=device)
     run_dec_b1add.launches += 1
     return out

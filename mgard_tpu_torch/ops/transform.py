@@ -178,7 +178,7 @@ def _check_matmul(hier: Hierarchy, l: int) -> None:
     if any(hier.dims[d][l].n > _MATMUL_MAX_N for d in _level_dims(hier, l)):
         raise NotImplementedError(
             f"dims over {_MATMUL_MAX_N} nodes need the tridiagonal-scan "
-            "transform (ROADMAP queue A, item 5), not ported yet")
+            "transform (ROADMAP queue A, item 2), not ported yet")
 
 
 def extract_old(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:

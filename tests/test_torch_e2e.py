@@ -96,10 +96,14 @@ def test_unported_branches_raise():
         section_sizes=(), layout=3, chunk_groups=4096), [b""])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.decompress(huffman, device="cpu")
+    roi = tfmt.write_container(tfmt.Header(
+        dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
+        error_mode=0, s=math.inf, tolerance=1e-3, norm=1.0,
+        lossless=int(JLossless.BITPLANE_GROUP), n_levels=5,
+        section_sizes=(), layout=3, chunk_groups=4096, roi_block=8),
+        [b"", b""])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, device="cpu",
-                    config=mt.Config(adapt_lossless=False,
-                                     max_block_bytes=1 << 16))
+        mt.decompress(roi, device="cpu")         # ROI containers
 
 
 def test_corrupted_stream_rejected():

@@ -1,9 +1,9 @@
 """mgard_tpu_torch's flat-stream paths end to end against mgard_tpu, on
 the CPU: the per-group codec that the default ``Config`` takes under 2^22
 values, the PYRAMID layout's chunked stream (K12/K11), float64 data on the
-wide codec, an all-zero field (an empty stream), and the configurations
-that stay single-domain (``adjust_shape`` that keeps the shape,
-``dd_method="block"`` with one block).
+wide codec, an all-zero field (an empty stream), and the ``adjust_shape``
+and ``dd_method="block"`` options, where they keep one domain and where
+they reshape or split it.
 
 Containers are compared by cross-decoding (they are not canonical across
 implementations, doc/FORMAT.md): each package decodes the other's within
@@ -120,16 +120,27 @@ def test_all_zero_field_cross_decodes(cfg):
                                     dict(dd_method="block")], ids=str)
 def test_single_domain_options(option):
     """adjust_shape that keeps 33^3 and a one-block dd_method="block"
-    grid write the ordinary container in both packages."""
+    grid write the ordinary container in both packages; at (16, 1024),
+    which adjust_shape reshapes and block_edge=256 cuts into four blocks,
+    both packages write the same header and each decodes the other's
+    container in the original shape."""
     ht = _cross_check(_field((33, 33, 33)), 1e-2, JConfig(**option),
                       mt.Config(**option))
     assert ht.orig_shape is None and ht.dd_grid is None
     assert not ht.dd_nblocks
     assert mt.api.adjust_shape((16, 1024)) \
         == mgard_tpu.api.adjust_shape((16, 1024)) != (16, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(_field((16, 1024)), 1e-2, config=mt.Config(**option),
-                    device="cpu")
+    v = _field((16, 1024))
+    ht = _cross_check(v, 1e-2, JConfig(**option), mt.Config(**option))
+    hj, _ = tfmt.read_container(mgard_tpu.compress(
+        v, 1e-2, config=JConfig(**option)))
+    assert (ht.shape, ht.orig_shape, ht.dd_grid, ht.dd_nblocks) \
+        == (hj.shape, hj.orig_shape, hj.dd_grid, hj.dd_nblocks)
+    if "adjust_shape" in option:
+        assert ht.orig_shape == (16, 1024)
+        assert ht.shape == mt.api.adjust_shape((16, 1024))
+    else:
+        assert ht.dd_grid == (1, 4) and ht.orig_shape is None
 
 
 @pytest.mark.parametrize("case", ["pergroup", "pyramid", "float64"])
