@@ -2,7 +2,7 @@
 """Time K2 (``bp_quant_max``) and K6 (``gpk_prolong_add``) of one or more
 checkouts of the port on one NVIDIA GPU, in turns.
 
-    python3 chip_probe.py [--ptxas | --api] TREE [TREE ...]
+    python3 chip_probe.py [--ptxas | --api | --hierarchy] TREE [TREE ...]
 
 Each TREE is a directory that holds ``mgard_tpu_torch/`` (this checkout
 is ``.``; an older commit unpacked with ``git archive`` is another).  The
@@ -26,6 +26,10 @@ level-9 K6 inputs), it prints one JSON line with, in ms by CUDA events:
 (``mt.compress`` and ``mt.decompress`` with numpy in and out, host
 clock) five times after one warm-up, and holds the output within the
 tolerance.
+
+``--hierarchy`` instead times, for each tree, the host build of
+``Hierarchy((280953867,))`` (the long-dims phase's 1-D series; host
+clock, no device work) and prints the process's peak resident set.
 
 ``--ptxas`` first compiles each ``csrc/*.cu`` of this checkout with
 ``nvcc -Xptxas -v`` and prints the registers, shared memory and spills
@@ -178,6 +182,27 @@ def run_api(tree: str, reps: int = 5) -> dict:
             "decompress_mean_ms": float(np.mean(dec_ms))}
 
 
+def run_hierarchy(tree: str) -> dict:
+    import resource
+    import time
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    from mgard_tpu_torch import hierarchy
+
+    if not os.path.samefile(os.path.dirname(hierarchy.__file__),
+                            os.path.join(tree, "mgard_tpu_torch")):
+        raise RuntimeError(f"imported {hierarchy.__file__}, not {tree}'s "
+                           "package")
+    shape = (280953867,)
+    t0 = time.perf_counter()
+    hier = hierarchy.Hierarchy(shape)
+    build_s = time.perf_counter() - t0
+    return {"tree": tree, "shape": list(shape), "L": hier.L,
+            "build_s": build_s, "cpus": os.cpu_count(),
+            "peak_rss_bytes":
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -190,12 +215,15 @@ def main() -> int:
     if args[:1] == ["--one-api"]:
         print(json.dumps(run_api(args[1])), flush=True)
         return 0
+    if args[:1] == ["--one-hierarchy"]:
+        print(json.dumps(run_hierarchy(args[1])), flush=True)
+        return 0
     one = "--one"
     if args[:1] == ["--ptxas"]:
         ptxas_report()
         args = args[1:]
-    elif args[:1] == ["--api"]:
-        one = "--one-api"
+    elif args[:1] in (["--api"], ["--hierarchy"]):
+        one = "--one-" + args[0][2:]
         args = args[1:]
     if not args:
         print(__doc__, file=sys.stderr)

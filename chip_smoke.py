@@ -11,7 +11,8 @@ tolerance of 1e-3 and decompressed again: segmented, with the one-pass
 GPK kernels, then with the two-pass ones, then with the LPK correction;
 on the flat PYRAMID stream; the default per-group codec at 128^3; the
 512^3 field as float64; then with s-norm error control; then a 1024^3
-field split into blocks), checks every result, and prints the kernels'
+field split into blocks; then long dims, over 4096 nodes, whose
+correction solves with S1), checks every result, and prints the kernels'
 JSON line, the card's line and a last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -104,14 +105,47 @@ Phases (each prints its wall time):
                  a (16, 4096, 4096) field with adjust_shape, stored as
                  (256, 256, 4096) and returned in its own shape, K1-K6
                  bit for bit against their plain versions at that shape;
- 13. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 13. long dims - dims over 4096 nodes take the per-dim transform, its
+                 correction solving with S1 (``csrc/tridiag.cu``); each
+                 case with its own launch counters, bench.py's kind of
+                 field built in float32 on the card from seed 0, ABS
+                 1e-3, after S1 bit for bit against its plain version on
+                 each of its layouts and schedules (check_solve_layouts):
+                 (a) a 1-D series of 280,953,867 values (one HACC
+                 field of SDRBench; L = 29, 30 segments): the hierarchy's
+                 build time, the round trip, S1 twice a per-dim level,
+                 device encode/decode and S1's share of them, S1 per
+                 level and alone on the top level's 2^28 + 1 nodes, S1
+                 bit for bit against its plain version on solves of at
+                 most 2^16 nodes and within SOLVE_RESIDUAL_BOUND above;
+                 (b) (64, 512, 8192), levels 5-6 per dim: K5/K6 once,
+                 K1 where its gate admits, K2 once, device times, and S1
+                 at level 6 along each axis bit for bit against its
+                 plain version (the kernels line's entry, dim 0, with a
+                 dense inverse tensordot as its library time); for (a)
+                 and (b) the encode's peak device memory and the tables
+                 it keeps on the card against the planner's 4.485x, and
+                 K1-K6 bit for bit against their plain versions at their
+                 own shapes, K3's stream the container's (K2 over (a)'s
+                 30 segments in one launch); (c) (8192, 8192) at s = 0,
+                 ||v - out||_0 by the port's norms in float64 (S1 at
+                 every level of those), K11 bit for bit against its
+                 plain version on the container's top level; (d) the
+                 512^3 field with transform._SOLVER = "scan" (what
+                 MGARD_TPU_SOLVER=scan sets at import): every level per
+                 dim, the ratio within 1% of the default's, containers
+                 cross-decoded with the default both ways, device times
+                 in turns with the matmul correction, S1 bit for bit
+                 against its plain version at every level (9 to 1);
+ 14. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
                  K5/K6 with K13): the pyramids agree and each container
                  decodes on both within the tolerance; with finite s at
                  65^3 (s = 0) and on a nonuniform (33, 65, 65) grid
                  (s = 1), segmented, each decode on the card through K11;
- 14. summary   - the kernels line, the card line, the ok line.
+ 15. summary   - the kernels line (S1 after K1-K17), the card line, the
+                 ok line.
 """
 
 from __future__ import annotations
@@ -872,7 +906,7 @@ def main_path(v_host):
         f"launches {counts}")
     missing = [k for k in SEGMENTED_KERNELS if counts[k] == 0]
     extra = [k for k in FLAT_KERNELS + TWO_PASS_KERNELS + LPK_KERNELS
-             + NO_PATH_KERNELS if counts[k]]
+             + NO_PATH_KERNELS + (SOLVE_NAME,) if counts[k]]
     if missing or extra:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}; launched off it: {extra}")
@@ -1429,10 +1463,12 @@ def host_memory(label):
         f"{peak_rss} bytes")
 
 
-def check_block_kernels(label, comp, v, tol, sections=None) -> int:
+def check_block_kernels(label, comp, v, tol, sections=None,
+                        stencil=True) -> int:
     """K1-K6 bit for bit against their plain versions at one block's own
     shape: K1, K5 and K6 at every level of the block's decomposition
-    that their gates admit, K2-K4 on its pyramid quantized at ``tol``.
+    that their gates admit (at least one unless ``stencil`` is false, as
+    for a 1-D series), K2-K4 on its pyramid quantized at ``tol``.
     With ``sections`` (the block's in a container), K3's stream must be
     theirs, and K4 and its plain version decode the container's own
     words.  Returns the stream's word count."""
@@ -1517,7 +1553,9 @@ def check_block_kernels(label, comp, v, tol, sections=None) -> int:
         f"words (2^28 = {1 << 28}, 2^31 = {1 << 31})"
         + ("; K3's stream is the container's and K4 decoded it"
            if sections is not None else ""))
-    bad = {k: x for k, x in errs.items() if not x or any(y != 0.0 for y in x)}
+    stencils = ("extract_coarse_3d", "gpk_detail", "gpk_prolong_add")
+    bad = {k: x for k, x in errs.items() if any(y != 0.0 for y in x)
+           or not (x or (k in stencils and not stencil))}
     if bad:
         raise AssertionError(f"{label}: kernels missing or differing from "
                              f"their plain versions: {bad}")
@@ -1713,6 +1751,509 @@ def multiblock_paths(v512):
     return counts
 
 
+# The long-dims phase: dims over transform._MATMUL_MAX_N = 4096 nodes take
+# the per-dim transform, whose correction solves with S1.  LONG_SERIES is
+# the length of one 1-D float32 particle field of the HACC cosmology code
+# in SDRBench (1.12 GB, one domain, L = 29, 30 segments).
+LONG_SERIES = 280953867
+LONG_FIELD = (64, 512, 8192)
+LONG_SQUARE = (8192, 8192)
+# S1 is held bit for bit against its plain version (a Python loop over
+# the nodes) on solves of at most this many nodes.
+SOLVE_PLAIN_MAX = 1 << 16
+# Above that, max|M x - b| / max|b| in float64 must stay under this bound:
+# 8x the largest that the plain version gives on the CPU at 2^20 + 1
+# nodes in float32 (tools/solve_residual_bound.py: 1.51e-7 for normal b,
+# 1.16e-7 for a smooth b, on a uniform grid).
+SOLVE_RESIDUAL_BOUND = 1.2e-6
+SOLVE_NAME = "mass_solve"
+
+
+def smooth_field_card(shape, seed=SEED):
+    """bench.py's kind of field (three separable cosine modes plus 1e-3
+    Gaussian noise) built in float32 on the card, the noise from a CUDA
+    generator seeded with ``seed``."""
+    import torch
+    f = torch.zeros(shape, dtype=torch.float32, device="cuda")
+    for k in (1, 3, 7):
+        term = None
+        for d, n in enumerate(shape):
+            x = torch.linspace(0.0, 1.0, n, dtype=torch.float32,
+                               device="cuda")
+            c = torch.cos(np.pi * k * x + 0.1 * k * (d + 1))
+            shp = [1] * len(shape)
+            shp[d] = n
+            c = c.reshape(shp)
+            term = c if term is None else term * c
+        f += term / k
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f += 0.001 * torch.randn(shape, generator=g, device="cuda")
+    return f
+
+
+def fallback_pairs(hier):
+    """The (level, dim) pairs whose correction takes the per-dim form:
+    each solves once in each direction."""
+    from mgard_tpu_torch.ops import transform
+    return [(l, d) for l in range(1, hier.L + 1)
+            if not transform._use_matmul(hier, l)
+            for d in transform._level_dims(hier, l)]
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
+
+
+def solve_residual(b, x, lev, axis) -> float:
+    """max|M x - b| / max|b| in float64, M the level's mass matrix."""
+    from mgard_tpu_torch.ops import tridiag
+    r = tridiag.mass_apply(x.double(), lev.h, axis)
+    r -= b.double()
+    return float(r.abs().max()) / float(b.abs().max())
+
+
+class SolveProbe:
+    """Wraps ``transform.mass_solve`` (S1) for one transform run: records
+    each call's nodes, axis and CUDA-event time, and with ``check`` holds
+    the output bit for bit against the plain version on at most
+    SOLVE_PLAIN_MAX nodes and by its float64 residual above."""
+
+    def __init__(self, hier, check=False):
+        self.hier, self.check = hier, check
+        self.calls, self.checked = [], []
+
+    def __enter__(self):
+        import torch
+        from mgard_tpu_torch.ops import transform, tridiag
+        self.saved = transform.mass_solve
+
+        def probe(b, offdiag, divisors, axis):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            x = self.saved(b, offdiag, divisors, axis)
+            e.record()
+            n = b.shape[axis]
+            self.calls.append((n, axis, tuple(b.shape), s, e))
+            if self.check:
+                lev = next(lv for lv in self.hier.dims[axis]
+                           if lv.divisors is divisors)
+                if n <= SOLVE_PLAIN_MAX:
+                    plain = tridiag.mass_solve_plain(b, offdiag, divisors,
+                                                     axis)
+                    self.checked.append((n, axis, "bits",
+                                         bits_equal(x, plain)))
+                else:
+                    self.checked.append((n, axis, "residual",
+                                         solve_residual(b, x, lev, axis)))
+            return x
+
+        transform.mass_solve = probe
+        return self
+
+    def __exit__(self, *exc):
+        from mgard_tpu_torch.ops import transform
+        transform.mass_solve = self.saved
+        return False
+
+    def times(self):
+        import torch
+        torch.cuda.synchronize()
+        return [(n, axis, shape, s.elapsed_time(e))
+                for n, axis, shape, s, e in self.calls]
+
+    def verdict(self, label):
+        bad = [c for c in self.checked
+               if (c[2] == "bits" and not c[3])
+               or (c[2] == "residual" and not c[3] <= SOLVE_RESIDUAL_BOUND)]
+        log(f"{label}: S1 against its plain version, (nodes, axis, check, "
+            f"result): {self.checked}")
+        if bad or not self.checked:
+            raise AssertionError(f"{label}: S1 checks failed: {bad}")
+
+
+def expect_launches(label, counts, want):
+    """Raise unless each kernel named in ``want`` launched that often."""
+    got = {k: counts[k] for k in want}
+    log(f"{label}: launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def device_tables_bytes() -> int:
+    """Bytes of the hierarchy tables that the operators keep on the card
+    (``tridiag.cached_tensor`` and S1's coefficients), held as long as
+    their hierarchy is cached."""
+    from mgard_tpu_torch.ops import tridiag
+    total = 0
+    for hit in tridiag._TENSORS.values():
+        for t in hit if isinstance(hit, tuple) else (hit,):
+            if t.device.type == "cuda":
+                total += t.numel() * t.element_size()
+    return total
+
+
+def long_device_times(label, comp, v, header, sections):
+    """Device encode and decode by CUDA events (one warm-up each), and
+    S1's share of each: its calls timed inside one more encode and
+    decode.  Also the encode's peak device memory (its input counted, as
+    in the planner's estimate) and the hierarchy tables that the encode
+    leaves on the card, each over the input's bytes."""
+    import torch
+    import mgard_tpu_torch as mt
+
+    bound = header.tolerance
+    nbytes = v.numel() * v.element_size()
+    comp.encode_device(v, bound)              # the tables on the card
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    comp.encode_device(v, bound)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + nbytes
+    tables = device_tables_bytes()
+    log(f"{label}: encode peak {peak} bytes = {peak / nbytes:.4f}x the "
+        f"input's {nbytes} bytes, beside the hierarchy tables kept on the "
+        f"card, {tables} bytes = {tables / nbytes:.4f}x: "
+        f"{(peak + tables) / nbytes:.4f}x in all (planner's estimate "
+        f"{FOOTPRINT_PER_BYTE:.4f}x)")
+    if not peak + tables <= FOOTPRINT_PER_BYTE * nbytes:
+        log(f"{label}: the encode's memory exceeds the planner's estimate")
+    exps, words = comp.stream_tensors(header, sections)
+    enc_ms = cuda_ms(lambda: comp.encode_device(v, bound), 1)
+    dec_ms = cuda_ms(lambda: comp.decode_device(
+        exps, words, bound, mt.Lossless(header.lossless)), 1)
+    with SolveProbe(comp.hier) as enc_probe:
+        comp.encode_device(v, bound)
+    with SolveProbe(comp.hier) as dec_probe:
+        comp.decode_device(exps, words, bound, mt.Lossless(header.lossless))
+    enc_s, dec_s = enc_probe.times(), dec_probe.times()
+    del exps, words
+    torch.cuda.empty_cache()
+    gb = nbytes / 1e9
+    solve_enc = sum(t for *_, t in enc_s)
+    solve_dec = sum(t for *_, t in dec_s)
+    log(f"{label}: device encode {enc_ms:.3f} ms ({gb / enc_ms * 1e3:.2f} "
+        f"GB/s), decode {dec_ms:.3f} ms ({gb / dec_ms * 1e3:.2f} GB/s) "
+        f"(CUDA events); S1 {solve_enc:.3f} ms of the encode "
+        f"({solve_enc / enc_ms:.2%}), {solve_dec:.3f} ms of the decode "
+        f"({solve_dec / dec_ms:.2%}); S1 calls in the encode (nodes, axis, "
+        f"shape, ms): {enc_s}")
+    return enc_s
+
+
+def s1_record(b, lev, axis):
+    """S1 at one solve of the main path against its plain version: the
+    kernels-line entry (bit-identical, timed).  Its library time is one
+    tensordot of the level's dense inverse mass matrix (built on the card
+    in float64 outside the timed region, cast to the data's dtype) with
+    ``b`` along ``axis``, as the dense-matrix correction applies it."""
+    import torch
+    from mgard_tpu_torch.ops import tridiag
+    x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis)
+    plain = tridiag.mass_solve_plain(b, lev.offdiag, lev.divisors, axis)
+    err = 0.0 if bits_equal(x, plain) else \
+        float((x.double() - plain.double()).abs().max()) or float("nan")
+    n = b.shape[axis]
+    M = tridiag.mass_apply(torch.eye(n, dtype=torch.float64,
+                                     device=b.device), lev.h, 0)
+    Minv = torch.linalg.inv(M).to(b.dtype)
+    del M
+    lib = torch.tensordot(Minv, b, dims=([1], [axis])).movedim(0, axis)
+    lib_err = float((lib.double() - x.double()).abs().max())
+    lib_ms = cuda_ms(lambda: torch.tensordot(Minv, b, dims=([1], [axis])), 5)
+    del lib, Minv
+    log(f"S1 library on {tuple(b.shape)} axis {axis}: tensordot with the "
+        f"dense inverse {lib_ms:.4f} ms (max|diff| to S1 {lib_err:.3e})")
+    nbytes = 2 * b.numel() * b.element_size()
+    results = []
+    record(results, "S1 " + SOLVE_NAME, "mgard_tpu_torch/csrc/tridiag.cu",
+           "mgard_tpu/ops/tridiag.py:69 (lax.scan, no Pallas kernel)", err,
+           cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
+                                              axis), 5),
+           cuda_ms(lambda: tridiag.mass_solve_plain(
+               b, lev.offdiag, lev.divisors, axis), 1),
+           nbytes, 0, library_ms=lib_ms)
+    return results[0]
+
+
+def check_solve_layouts():
+    """S1 bit for bit against its plain version on each of its layouts
+    and schedules, float32 and float64: whole lines along the first, a
+    middle and the last axis (the last moved first), chunked lines of a
+    1-D series and of a middle axis (outer and inner both over 1), and
+    the chunked ones again with a 1-node overlap, where most chunks miss
+    and are walked."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import tridiag
+
+    cases = [((33, 257, 40), 0), ((33, 257, 40), 1), ((33, 40, 257), 2),
+             ((5001,), 0), ((3, 5001, 7), 1)]
+    got = []
+    g = torch.Generator(device="cuda").manual_seed(3)
+    saved = tridiag._SOLVE_OVERLAP
+    try:
+        for dtype in (torch.float32, torch.float64):
+            for shape, axis in cases:
+                lev = mt.Hierarchy((shape[axis],)).dims[0][-1]
+                b = torch.randn(shape, generator=g, device="cuda",
+                                dtype=dtype)
+                plain = tridiag.mass_solve_plain(b, lev.offdiag,
+                                                 lev.divisors, axis)
+                for overlap in (saved, 1):
+                    tridiag._SOLVE_OVERLAP = overlap
+                    x = tridiag.mass_solve(b, lev.offdiag, lev.divisors,
+                                           axis)
+                    m = b.numel() // shape[axis]
+                    got.append((shape, axis, str(dtype)[6:], overlap,
+                                tridiag.chunk_length(shape[axis], m),
+                                bits_equal(x, plain)))
+    finally:
+        tridiag._SOLVE_OVERLAP = saved
+    log(f"S1 layouts (shape, axis, dtype, overlap, chunk, bit-identical): "
+        f"{got}")
+    if not all(c[-1] for c in got):
+        raise AssertionError("S1 differs from its plain version")
+
+
+def long_series():
+    """(a) the 1-D series through the API."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch import api
+    from mgard_tpu_torch.ops import bp_kernels as bk, tridiag
+
+    shape = (LONG_SERIES,)
+    v = smooth_field_card(shape)
+    v_host = v.cpu().numpy()
+    t0 = time.perf_counter()
+    comp = mt.get_compressor(shape, np.float32,
+                             device=api.block_devices(None)[0])
+    build_s = time.perf_counter() - t0
+    hier = comp.hier
+    pairs = fallback_pairs(hier)
+    nblocks = api.plan_blocks(shape, np.float32, mt.Config(), "cuda")
+    log(f"long series {shape} float32, {v_host.nbytes} bytes: hierarchy "
+        f"built in {build_s:.3f} s (host), L = {hier.L}, {hier.L + 1} "
+        f"segments, {nblocks} block(s), per-dim levels {len(pairs)}")
+    host_memory("long series hierarchy built")
+    if nblocks != 1 or hier.L + 1 > bk.SEGMENT_CAPACITY:
+        raise AssertionError("the series must be one domain of at most "
+                             f"{bk.SEGMENT_CAPACITY} segments")
+    buf, header, sections, out, counts, tc, td = round_trip(
+        "long series", v_host, TOL)
+    err = card_max_err(v_host, out)
+    log(f"long series: max|v - out| = {err!r} (tolerance {TOL}); API "
+        f"wall {tc + td:.3f} s")
+    del out
+    expect_launches("long series", counts, {
+        SOLVE_NAME: 2 * len(pairs), "bp_quant_max": 1,
+        "gpk_detail": 0, "gpk_prolong_add": 0, "extract_coarse_3d": 0})
+    if not err <= TOL:
+        raise AssertionError(f"long series: error {err} exceeds {TOL}")
+    enc = long_device_times("long series", comp, v, header, sections)
+    per_level = {}
+    for n, _, _, ms in enc:
+        per_level[n] = per_level.get(n, 0.0) + ms
+    log(f"long series: S1 ms per solve in the encode, by nodes: {per_level}")
+    # the top level's solve timed on its own
+    n_top = max(per_level)
+    lev = next(lv for lv in hier.dims[0] if lv.n == n_top)
+    b = torch.randn(n_top, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    top_ms = cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
+                                                0), 3)
+    log(f"long series: S1 alone on {n_top} nodes: {top_ms:.3f} ms, bound "
+        f"{bound_ms(8 * n_top, 0)[0]:.4f} ms (bytes)")
+    del b
+    with SolveProbe(hier, check=True) as probe:
+        comp.encode_device(v, header.tolerance)
+    probe.verdict("long series")
+    check_block_kernels("long series kernels", api.compressor_for(header), v,
+                        header.tolerance, sections, stencil=False)
+    del v
+    mt.release_cache()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def long_field():
+    """(b) the (64, 512, 8192) field through the API, and S1 at level 6
+    along each axis against its plain version."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.api import compressor_for
+    from mgard_tpu_torch.ops import extract_kernels as xk, transform
+    from mgard_tpu_torch.ops import tridiag
+
+    v = smooth_field_card(LONG_FIELD, seed=SEED + 1)
+    v_host = v.cpu().numpy()
+    hier = mt.Hierarchy(LONG_FIELD)
+    pairs = fallback_pairs(hier)
+    probe_t = torch.empty(1, device="cuda")
+    k1 = sum(xk.extract_supported(hier, l, probe_t)
+             for l in range(1, hier.L + 1))
+    log(f"long field {LONG_FIELD}: L = {hier.L}, per-dim (level, dim) "
+        f"pairs {pairs}, K1 levels {k1}")
+    buf, header, sections, out, counts, tc, td = round_trip(
+        "long field", v_host, TOL)
+    err = card_max_err(v_host, out)
+    log(f"long field: max|v - out| = {err!r} (tolerance {TOL})")
+    del out
+    expect_launches("long field", counts, {
+        SOLVE_NAME: 2 * len(pairs), "gpk_detail": 1, "gpk_prolong_add": 1,
+        "bp_quant_max": 1, "extract_coarse_3d": k1})
+    if not err <= TOL:
+        raise AssertionError(f"long field: error {err} exceeds {TOL}")
+    comp = compressor_for(header)
+    long_device_times("long field", comp, v, header, sections)
+    check_block_kernels("long field kernels", comp, v, header.tolerance,
+                        sections)
+    # S1 at level 6 along each axis, on the correction's own input
+    l = hier.L
+    pyr = transform.decompose(hier, v)
+    B = pyr[l]
+    del pyr
+    for d in transform._level_dims(hier, l):
+        B = tridiag.mass_apply(B, hier.dims[d][l].h, d)
+        B = transform.restrict(B, hier.dims[d][l], d)
+    entries = []
+    for d in transform._level_dims(hier, l):
+        B = B.contiguous()
+        entry = s1_record(B, hier.dims[d][l - 1], d)
+        log(f"long field level {l} axis {d}: S1 on {tuple(B.shape)} "
+            f"{entry['ms']:.4f} ms, {entry['bound_ms'] / entry['ms']:.1%} "
+            f"of its byte bound")
+        entries.append(entry)
+        lev = hier.dims[d][l - 1]
+        B = tridiag.mass_solve(B, lev.offdiag, lev.divisors, d)
+    del B, v
+    torch.cuda.empty_cache()
+    return counts, entries[0]
+
+
+def long_square():
+    """(c) (8192, 8192) at s = 0 through the API: the error by the port's
+    norms in float64 on the card, S1 at every level of those; K11 against
+    its plain version on the container's top level."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
+
+    v = smooth_field_card(LONG_SQUARE, seed=SEED + 2).cpu().numpy()
+    hier = mt.Hierarchy(LONG_SQUARE)
+    pairs = fallback_pairs(hier)
+    header, buf, comp, counts = drive("long square s = 0", v, mt.Config(),
+                                      s=0.0)
+    expect_launches("long square", counts, {
+        SOLVE_NAME: 2 * len(pairs), "bp_decode_condense": hier.L + 1,
+        "bp_decode_condense_f32": 0})
+    # K11 on the top level's segment of the container's own stream
+    exps, words = comp.stream_tensors(header, fmt.read_container(buf)[1])
+    e = exps.to(torch.int32)
+    offsets = bitplane._offsets(e)
+    C = comp.chunk_groups
+    sizes = [int(np.prod(s)) for s in hier.shapes]
+    ncs = [bitplane.num_chunks_tiled(n, C) for n in sizes]
+    a, nc, n = sum(ncs[:-1]), ncs[-1], sizes[-1]
+    got = bk.bp_decode_condense(words, C, offsets[a:a + nc], e[a:a + nc], n)
+    err = max_abs_diff(got, bk.bp_decode_condense_plain(
+        words, C, offsets[a:a + nc], e[a:a + nc], n))
+    log(f"long square: K11 against its plain version on level {hier.L}'s "
+        f"segment ({n} values, {nc} chunks, {int(e[a:a + nc].sum()) * C} "
+        f"stream words of {words.numel()}): max_abs_err {err} (tolerance "
+        f"0)")
+    if err != 0.0:
+        raise AssertionError("long square: K11 differs from its plain "
+                             "version")
+    del exps, words, got
+    torch.cuda.empty_cache()
+
+
+def scan_solver(v_host, main_buf):
+    """(d) the main path's 512^3 field with transform._SOLVER = "scan"
+    (what MGARD_TPU_SOLVER=scan sets at import): every level takes the
+    per-dim correction; containers cross-decoded with the default; device
+    times in turns with the matmul correction; S1 at level 9."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.api import compressor_for
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import transform
+
+    hier = mt.Hierarchy(SHAPE)
+    saved = transform._SOLVER
+    try:
+        transform._SOLVER = "scan"
+        pairs = fallback_pairs(hier)
+        buf, header, sections, out, counts, _, _ = round_trip(
+            "scan solver", v_host, TOL)
+        err = float(np.abs(out.astype(np.float64) - v_host).max())
+        del out
+        # the default container decoded with the scan correction
+        cross_a = float(np.abs(mt.decompress(main_buf).astype(np.float64)
+                               - v_host).max())
+    finally:
+        transform._SOLVER = saved
+    cross_b = float(np.abs(mt.decompress(buf).astype(np.float64)
+                           - v_host).max())
+    ratio, main_ratio = v_host.nbytes / len(buf), v_host.nbytes / len(
+        main_buf)
+    log(f"scan solver: max|v - out| = {err!r}, ratio {ratio!r} (default "
+        f"{main_ratio!r}); default container decoded by the scan form "
+        f"{cross_a!r}, scan container by the default {cross_b!r}")
+    expect_launches("scan solver", counts, {
+        SOLVE_NAME: 2 * len(pairs), "gpk_detail": 1, "gpk_prolong_add": 1,
+        "bp_quant_max": 1})
+    if len(pairs) != 3 * hier.L or not max(err, cross_a, cross_b) <= TOL \
+            or not abs(ratio / main_ratio - 1) <= 0.01:
+        raise AssertionError(f"scan solver: pairs {len(pairs)}, errors "
+                             f"{err} {cross_a} {cross_b}, ratio {ratio}")
+    # device times in turns, and S1 at level 9 against its plain version
+    comp = compressor_for(header)
+    v = torch.from_numpy(v_host).cuda()
+    h2, s2 = fmt.read_container(buf)
+    exps, words = comp.stream_tensors(h2, s2)
+    try:
+        for solver in ("matmul", "scan", "scan", "matmul"):
+            transform._SOLVER = solver
+            time_device(comp, v, exps, words, f"correction {solver}")
+        transform._SOLVER = "scan"
+        with SolveProbe(hier, check=True) as probe:
+            transform._correction(hier, transform.decompose(hier, v)[9], 9)
+    finally:
+        transform._SOLVER = saved
+    probe.verdict("scan solver level 9")
+    del v, exps, words
+    torch.cuda.empty_cache()
+    return counts
+
+
+def long_dims(v_host, main_buf):
+    """The long-dims phase (see the module docstring)."""
+    import torch
+    import mgard_tpu_torch as mt
+
+    mt.release_cache()
+    torch.cuda.empty_cache()
+    check_solve_layouts()
+    counts = {"series": long_series()}
+    counts["field"], entry = long_field()
+    long_square()
+    counts["scan"] = scan_solver(v_host, main_buf)
+    mt.release_cache()
+    torch.cuda.empty_cache()
+    log(f"long dims: S1 launches (a) {counts['series'][SOLVE_NAME]}, (b) "
+        f"{counts['field'][SOLVE_NAME]}, (d) {counts['scan'][SOLVE_NAME]}")
+    entry["launches"] = counts["series"][SOLVE_NAME]
+    return entry
+
+
 def snorm_reference_check(shape, seed, s, uniform=True, tol=1e-3):
     """Card against CPU with finite ``s`` on the segmented stream
     (adapt_lossless=False): the containers made on each decode on both
@@ -1896,10 +2437,13 @@ def main() -> int:
 
     with Phase("s-norm"):
         snorm_paths(v_host, buf, counts)
-    del buf
 
     with Phase("multi-block"):
         multiblock_paths(v_host)
+
+    with Phase("long dims"):
+        s1_entry = long_dims(v_host, buf)
+    del buf
 
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
@@ -1918,6 +2462,8 @@ def main() -> int:
                          if k["name"] in TWO_PASS_KERNELS
                          else lpk_launches if k["name"] in LPK_KERNELS
                          else counts)[k["name"]]
+    # S1 (outside the K numbering): launches on the long series
+    kernels.append(s1_entry)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -27,8 +27,9 @@ import torch
 
 from .config import Config, Decomposition, ErrorMode, Layout
 from .io import format as fmt
-from .models.compressor import (Compressor, _cached_compressor, _corrupted,
-                                _not_ported, get_compressor, norm_of)
+from .models.compressor import (Compressor, _cached_compressor,
+                                _cached_hierarchy, _corrupted, _not_ported,
+                                get_compressor, norm_of)
 from .parallel.domain import block_grid_blocks, local_abs_tol
 
 __all__ = ["compress", "decompress", "release_cache", "resolve_device",
@@ -100,6 +101,7 @@ def release_cache() -> None:
     cache (reference mgard_x::release_cache,
     include/compress_x.hpp:159-166)."""
     _cached_compressor.cache_clear()
+    _cached_hierarchy.cache_clear()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
         _free_pinned()

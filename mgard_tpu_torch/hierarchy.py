@@ -15,7 +15,9 @@ so the two must build identical tables.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,10 +90,117 @@ class DimLevel:
     volumes: np.ndarray  # (n,)
 
 
-def _build_dim_level(x_fine: np.ndarray, fine_indices: np.ndarray,
+# Lengths over which _thomas_divisors runs the recurrence in chunks side
+# by side, each chunk started _DIV_OVERLAP steps early from a guess.
+_DIV_SERIAL_MAX = 4096
+_DIV_CHUNK = 2048
+_DIV_OVERLAP = 64
+_DIV_BLOCK = 64
+# Grids of at least this many nodes in all build their levels in threads.
+_PARALLEL_NODES = 1 << 22
+
+
+def _thomas_divisors(diag: np.ndarray, offdiag: np.ndarray) -> np.ndarray:
+    """The Thomas divisors of the mass matrix, bit for bit those of the
+    loop ``d[0] = diag[0]; d[j] = diag[j] - (off[j-1] / d[j-1]) * off[j-1]``
+    (reference TensorMassMatrix.tpp:123-140), which the JAX package runs
+    in Python: minutes at 10^8 nodes.
+
+    Each step maps the previous divisor monotonically and contracts by
+    ``(off / d)^2 <= 1/4`` on any grid (about 0.07 on a uniform one), so
+    two runs of the recurrence from different starts meet, bit for bit,
+    within a few dozen steps and agree from there on.  So the nodes are
+    cut into chunks that run side by side, one step at a time across all
+    chunks (numpy, the loop's float64 operations in its order), each
+    started ``_DIV_OVERLAP`` steps before its first node from a guess.  A
+    chunk whose run holds, at the node before its first one, the bits of
+    the previous chunk's exact divisor there repeats the loop's operations
+    on the loop's value, so it is exact.  A chunk whose run does not is
+    walked again from that exact divisor until the walk meets its stored
+    values.  The result is the loop's on every grid, uniform or not; only
+    the time depends on how soon the runs meet.
+    """
+    n = len(diag)
+    d = np.empty(n, dtype=np.float64)
+    d[0] = diag[0]
+    if n <= _DIV_SERIAL_MAX:
+        for j in range(1, n):
+            d[j] = diag[j] - (offdiag[j - 1] / d[j - 1]) * offdiag[j - 1]
+        return d
+    # step k computes node k + 1 from node k; chunk c takes steps
+    # c*C .. c*C + C - 1: row c of (nchunks, C) views, walked a block of
+    # _DIV_BLOCK columns at a time through transposed copies that stay in
+    # cache; the steps past the last whole chunk follow the walks
+    C, K = _DIV_CHUNK, _DIV_OVERLAP
+    nchunks = (n - 1) // C
+    dg = diag[1:1 + nchunks * C].reshape(nchunks, C)
+    og = offdiag[:nchunks * C].reshape(nchunks, C)
+    out = d[1:1 + nchunks * C].reshape(nchunks, C)
+    # chunks 1.. start at step c*C - K from half the diagonal of node
+    # c*C - K: below every divisor, as the loop's own start is, so that
+    # both runs climb from the same side
+    cur = np.empty(nchunks, dtype=np.float64)
+    cur[0] = d[0]
+    cur[1:] = 0.5 * diag[np.arange(1, nchunks) * C - K]
+    for k in range(C - K, C):
+        dk, ok = dg[:-1, k], og[:-1, k]
+        cur[1:] = dk - (ok / cur[1:]) * ok
+    probe = cur.copy()          # chunk c's value at node c*C
+    for k0 in range(0, C, _DIV_BLOCK):
+        db = dg[:, k0:k0 + _DIV_BLOCK].T.copy()
+        ob = og[:, k0:k0 + _DIV_BLOCK].T.copy()
+        for k in range(len(db)):
+            cur = db[k] - (ob[k] / cur) * ob[k]
+            db[k] = cur
+        out[:, k0:k0 + _DIV_BLOCK] = db.T
+    # a chunk is exact where its run meets the exact node c*C
+    first = np.arange(1, nchunks) * C + 1
+    bad = first[probe[1:].view(np.int64) != d[first - 1].view(np.int64)]
+    walked = 0
+    end = 1 + nchunks * C
+    for j in bad.tolist():
+        if j <= walked:
+            continue    # an earlier walk passed through this chunk
+        while j < end:
+            val = diag[j] - (offdiag[j - 1] / d[j - 1]) * offdiag[j - 1]
+            if val.view(np.int64) == d[j].view(np.int64):
+                break
+            d[j] = val
+            j += 1
+        walked = j
+    for j in range(end, n):
+        d[j] = diag[j] - (offdiag[j - 1] / d[j - 1]) * offdiag[j - 1]
+    return d
+
+
+def _parent_positions(fine_indices: np.ndarray,
+                      coarse_fine_indices: np.ndarray):
+    """``(coarse_pos, coarse_is_stride2, front_nc)``: where the parent
+    level's nodes sit in this level's grid.  The stride-2 and
+    front-interleaved patterns are tested by slicing, without the
+    ``searchsorted`` of the general case (same arrays, no log factor)."""
+    n, nc = len(fine_indices), len(coarse_fine_indices)
+    if n == 2 * nc - 1 and np.array_equal(fine_indices[::2],
+                                          coarse_fine_indices):
+        return 2 * np.arange(nc), True, None
+    nn = n - nc
+    if 0 < nn and 2 * nn + 1 <= n and np.array_equal(
+            fine_indices[:2 * nn + 1:2], coarse_fine_indices[:nn + 1]) \
+            and np.array_equal(fine_indices[2 * nn + 1:],
+                               coarse_fine_indices[nn + 1:]):
+        return np.concatenate([np.arange(0, 2 * nn + 1, 2),
+                               np.arange(2 * nn + 1, n)]), False, nn + 1
+    coarse_pos = np.searchsorted(fine_indices, coarse_fine_indices)
+    if not np.array_equal(fine_indices[coarse_pos], coarse_fine_indices):
+        raise AssertionError("hierarchy levels are not nested")
+    return coarse_pos, False, None
+
+
+def _build_dim_level(x: np.ndarray, fine_indices: np.ndarray,
                      coarse_fine_indices: Optional[np.ndarray]) -> DimLevel:
+    """The tables of one level of one dim; ``x``: the float64 coordinates
+    of its nodes, ``coordinates[fine_indices]``."""
     n = len(fine_indices)
-    x = x_fine[fine_indices].astype(np.float64)
     h = np.diff(x)
 
     coarse_pos = None
@@ -99,29 +208,25 @@ def _build_dim_level(x_fine: np.ndarray, fine_indices: np.ndarray,
     front_nc = None
     new_pos = new_left = new_right = new_ratio = None
     if coarse_fine_indices is not None:
-        nc = len(coarse_fine_indices)
-        # Position of parent nodes within this level's index list.
-        coarse_pos = np.searchsorted(fine_indices, coarse_fine_indices)
-        if not np.array_equal(fine_indices[coarse_pos], coarse_fine_indices):
-            raise AssertionError("hierarchy levels are not nested")
-        coarse_is_stride2 = (n == 2 * nc - 1) and np.array_equal(
-            coarse_pos, 2 * np.arange(nc))
-        if not coarse_is_stride2:
-            nn = n - nc
-            if 0 < nn and 2 * nn + 1 <= n:
-                pattern = np.concatenate([
-                    np.arange(0, 2 * nn + 1, 2),
-                    np.arange(2 * nn + 1, n)])
-                if np.array_equal(coarse_pos, pattern):
-                    front_nc = nn + 1
-        is_old = np.zeros(n, dtype=bool)
-        is_old[coarse_pos] = True
-        new_pos = np.nonzero(~is_old)[0].astype(np.int64)
-        # Left/right parent for each new node.
-        seg = np.searchsorted(coarse_pos, new_pos)  # index of right parent
-        new_left = coarse_pos[seg - 1]
-        new_right = coarse_pos[seg]
-        new_ratio = (x[new_pos] - x[new_left]) / (x[new_right] - x[new_left])
+        coarse_pos, coarse_is_stride2, front_nc = _parent_positions(
+            fine_indices, coarse_fine_indices)
+        if coarse_is_stride2 or front_nc is not None:
+            # new nodes at 1, 3, .., 2*nn - 1 between parents 2k and 2k+2
+            nn = n - len(coarse_pos)
+            new_pos = np.arange(1, 2 * nn, 2)
+            new_left = coarse_pos[:nn]
+            new_right = coarse_pos[1:nn + 1]
+            xl, xm, xr = x[0:2 * nn - 1:2], x[1:2 * nn:2], x[2:2 * nn + 1:2]
+        else:
+            is_old = np.zeros(n, dtype=bool)
+            is_old[coarse_pos] = True
+            new_pos = np.nonzero(~is_old)[0].astype(np.int64)
+            # Left/right parent for each new node.
+            seg = np.searchsorted(coarse_pos, new_pos)  # right parent
+            new_left = coarse_pos[seg - 1]
+            new_right = coarse_pos[seg]
+            xl, xm, xr = x[new_left], x[new_pos], x[new_right]
+        new_ratio = (xm - xl) / (xr - xl)
 
     # Mass-matrix Thomas divisors (symmetric tridiagonal with
     # diag = [h0/3, (h0+h1)/3, ..., h_{n-2}/3], offdiag = h/6).
@@ -130,22 +235,22 @@ def _build_dim_level(x_fine: np.ndarray, fine_indices: np.ndarray,
         diag[0] = h[0] / 3
         diag[-1] = h[-1] / 3
         if n > 2:
-            diag[1:-1] = (h[:-1] + h[1:]) / 3
+            np.add(h[:-1], h[1:], out=diag[1:-1])
+            diag[1:-1] /= 3
         offdiag = h / 6
-        divisors = np.empty(n, dtype=np.float64)
-        divisors[0] = diag[0]
-        for j in range(1, n):
-            w = offdiag[j - 1] / divisors[j - 1]
-            divisors[j] = diag[j] - w * offdiag[j - 1]
+        divisors = _thomas_divisors(diag, offdiag)
+        del diag
     else:
         offdiag = np.zeros(0, dtype=np.float64)
         divisors = np.ones(n, dtype=np.float64)
 
     # Volume weights with boundary clamping: (x[min(j+1,n-1)]-x[max(j-1,0)])/2
     if n >= 2:
-        xl = x[np.maximum(np.arange(n) - 1, 0)]
-        xr = x[np.minimum(np.arange(n) + 1, n - 1)]
-        volumes = (xr - xl) / 2
+        volumes = np.empty(n, dtype=np.float64)
+        np.subtract(x[2:], x[:-2], out=volumes[1:-1])
+        volumes[0] = x[1] - x[0]
+        volumes[-1] = x[-1] - x[-2]
+        volumes /= 2
     else:
         volumes = np.ones(n, dtype=np.float64)
 
@@ -236,8 +341,10 @@ class Hierarchy:
         # reference placement: indices[d][l][j] = j * (SHAPE[d]-1) // (n_l-1)
         # tpu placement: derived finest->coarsest; the non-dyadic step keeps
         # [0, 2, .., 2*nn, 2*nn+1, .., n-1] (front-interleaved), dyadic
-        # steps keep every other node.
+        # steps keep every other node.  Each level's coordinates are taken
+        # the same way, as views where the step is a slice.
         self._fine_indices = []
+        level_x = []
         for d in range(self.ndim):
             numerator = shape[d] - 1
             if placement == "reference":
@@ -252,37 +359,47 @@ class Hierarchy:
                         j = np.arange(n, dtype=np.int64)
                         idx = (j * numerator) // (n - 1)
                     per_level.append(idx)
+                xs = [self.coordinates[d][idx] for idx in per_level]
             else:
                 per_level = [None] * (self.L + 1)
                 per_level[self.L] = np.arange(shape[d], dtype=np.int64)
+                xs = [None] * (self.L + 1)
+                xs[self.L] = self.coordinates[d]
                 for l in range(self.L, 0, -1):
-                    cur = per_level[l]
-                    ncur = len(cur)
+                    ncur = len(per_level[l])
                     ntgt = self.shapes[l - 1][d]
-                    if ncur == ntgt:
-                        per_level[l - 1] = cur
-                    elif 2 * ntgt - 1 == ncur:
-                        per_level[l - 1] = cur[::2]
-                    else:
-                        nn = ncur - ntgt
-                        pos = np.concatenate([
-                            np.arange(0, 2 * nn + 1, 2),
-                            np.arange(2 * nn + 1, ncur)])
-                        per_level[l - 1] = cur[pos]
+                    for lv in (per_level, xs):
+                        cur = lv[l]
+                        if ncur == ntgt:
+                            lv[l - 1] = cur
+                        elif 2 * ntgt - 1 == ncur:
+                            lv[l - 1] = cur[::2]
+                        else:
+                            nn = ncur - ntgt
+                            lv[l - 1] = np.concatenate(
+                                [cur[:2 * nn + 1:2], cur[2 * nn + 1:]])
             self._fine_indices.append(per_level)
+            level_x.append(xs)
 
         # --- per-dim per-level operator tables ---
+        # (numpy lets go of the GIL in its array loops, so the levels of a
+        # long dim, each a few passes over its nodes, build side by side)
+        def build(d, l):
+            return _build_dim_level(
+                level_x[d][l], self._fine_indices[d][l],
+                self._fine_indices[d][l - 1] if l > 0 else None)
+
+        jobs = [(d, l) for d in range(self.ndim) for l in range(self.L + 1)]
+        if sum(len(level_x[d][l]) for d, l in jobs) < _PARALLEL_NODES:
+            built = [build(d, l) for d, l in jobs]
+        else:
+            with concurrent.futures.ThreadPoolExecutor(
+                    min(len(jobs), os.cpu_count() or 1)) as pool:
+                built = list(pool.map(lambda job: build(*job), jobs))
+        levels = iter(built)
         self.dims: Tuple[Tuple[DimLevel, ...], ...] = tuple(
-            tuple(
-                _build_dim_level(
-                    self.coordinates[d],
-                    self._fine_indices[d][l],
-                    self._fine_indices[d][l - 1] if l > 0 else None,
-                )
-                for l in range(self.L + 1)
-            )
-            for d in range(self.ndim)
-        )
+            tuple(next(levels) for _ in range(self.L + 1))
+            for _ in range(self.ndim))
 
     # ------------------------------------------------------------------
     def ndof(self, l: Optional[int] = None) -> int:

@@ -434,12 +434,20 @@ class Compressor:
 
 
 @functools.lru_cache(maxsize=32)
+def _cached_hierarchy(shape: Tuple[int, ...], coords_key) -> Hierarchy:
+    """One hierarchy per grid, shared by the compressors of that grid (an
+    encode's and a decode's differ in their chunk width and config): at
+    10^8 nodes a dim its tables take tens of GB of host memory."""
+    coords = None if coords_key is None else [
+        np.asarray(c) for c in coords_key]
+    return Hierarchy(shape, coordinates=coords)
+
+
+@functools.lru_cache(maxsize=32)
 def _cached_compressor(shape: Tuple[int, ...], dtype_str: str, s: float,
                        coords_key, config_key, chunk_groups: int,
                        device: str) -> Compressor:
-    coords = None if coords_key is None else [
-        np.asarray(c) for c in coords_key]
-    hier = Hierarchy(shape, coordinates=coords)
+    hier = _cached_hierarchy(shape, coords_key)
     (lossless, zstd_level, decomposition, layout, num_local, adapt,
      cfg_cg) = config_key
     cfg = Config(lossless=Lossless(lossless), zstd_level=zstd_level,

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "mgard_bp_condense_into": (_P, _I, _I, _P, _P, _P, _P),
     "mgard_bp_encode_core": (_P, _I, _P, _P, _P, _P),
     "mgard_bp_decode_core": (_P, _P, _I, _P, _P),
+    "mgard_mass_solve": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                         _LL, _I, _P),
 }
 
 

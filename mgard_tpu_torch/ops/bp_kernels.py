@@ -200,8 +200,9 @@ def bp_quant_max_plain(seg, nchunks: int, C: int, inv_q: float):
 
 
 # Segments one K2 launch takes: its table travels in the kernel's
-# parameters (csrc/bp_codec.cu, kMaxSegments).  Dims up to 4096 give at
-# most 13 levels.
+# parameters (csrc/bp_codec.cu, kMaxSegments).  The default planner keeps
+# a float32 domain to 2^29 values (Config.max_block_bytes), so at most
+# L = 29 levels, 30 segments, even for a 1-D series.
 SEGMENT_CAPACITY = 32
 
 

@@ -1,29 +1,43 @@
-"""Multilevel decompose/recompose (the port of ``mgard_tpu/ops/transform.py``
-on its dense-matrix path, the one every dim up to 4096 nodes takes).
+"""Multilevel decompose/recompose (the port of
+``mgard_tpu/ops/transform.py``).
 
 Per level ``l`` (finest to coarsest), with ``A`` the dense level-``l``
 values:
 
     C       = A restricted to parent nodes         (K1, or gathers)
-    P       = multilinear interpolation of C        (K5, K7+K8, or one
-                                                     matmul per dim)
+    P       = multilinear interpolation of C        (K5, K7+K8, one
+                                                     matmul or lerp per dim)
     detail  = A - P          # zero at parent nodes, coefficients elsewhere
-    A_{l-1} = C + K(detail)  # K = M_{l-1}^{-1} R_l M_l, one matmul per dim
+    A_{l-1} = C + K(detail)  # K = M_{l-1}^{-1} R_l M_l
 
-``recompose`` runs the exact inverse, with K6, K9+K10 or the matmuls
-for ``P + detail``.  The per-dim operators are small dense float64 matrices
-built on the host from the hierarchy's tables, cast to the data's dtype
-and applied as tensordots in it: full float32 (no TF32; the package
-turns it off at import), or float64 for float64 data, as the JAX package
-runs it.  As in the JAX package, the interpolation goes through the
+``recompose`` runs the exact inverse, with K6, K9+K10, the matmuls or the
+lerps for ``P + detail``.  Two forms, chosen per level as the JAX package
+chooses them (:func:`_use_matmul`):
+
+* **dense matrices** (the default, every dim of the level at most
+  ``MGARD_TPU_MATMUL_MAX_N`` = 4096 nodes): the per-dim operators are
+  small dense float64 matrices built on the host from the hierarchy's
+  tables, cast to the data's dtype and applied as tensordots in it:
+  full float32 (no TF32; the package turns it off at import), or float64
+  for float64 data, as the JAX package runs it;
+* **per dim** (a longer dim, or ``MGARD_TPU_SOLVER=scan``): the
+  interpolation is the lerp of :func:`prolong` along each dim, and the
+  correction is ``mass_apply`` and :func:`restrict` along each dim, then
+  the Thomas solve of the level below along each dim (``ops/tridiag.py``,
+  S1 on the card).
+
+Both switches are the JAX package's, read at import.  As in the JAX
+package, the interpolation goes through the
 GPK stencil kernels (``ops/stencil_kernels.py``) at every level their
 gate admits: the one-pass K5/K6 by default, the two-pass K7-K10 under
 ``MGARD_TPU_GPK_FUSED=0`` (the JAX package's switch).  The gate admits
 only float32 CUDA tensors, so off the card the transform takes the
-matmul form, as the JAX package does off the TPU, and float64 data
-takes it everywhere (K1 is float32 only too, as in the JAX package).
-Under ``MGARD_TPU_LPK=1`` (the JAX package's switch, read at import) the
-correction of a level that ``lpk_kernels.rm0_supported`` admits applies
+matmul or per-dim form, as the JAX package does off the TPU, and float64
+data takes it everywhere (K1 is float32 only too, as in the JAX
+package); the GPK and K1 gates do not depend on the form.  Under
+``MGARD_TPU_LPK=1`` (the JAX package's switch, read at import) the
+correction of a dense-matrix level that ``lpk_kernels.rm0_supported``
+admits applies
 its dim-0 ``R_l M_l`` with K13 (``ops/lpk_kernels.py``) and finishes
 with the matmuls ``[M_{l-1}^{-1}, K1, K2]``; decompose and recompose
 take the same branch, so both run the same arithmetic.
@@ -41,14 +55,17 @@ from ..hierarchy import DimLevel, Hierarchy
 from . import extract_kernels as xk
 from . import lpk_kernels as lk
 from . import stencil_kernels as sk
-from .tridiag import along_axis, pad_axis
+from .tridiag import (along_axis, cached_tensor, mass_apply, mass_solve,
+                      pad_axis)
 
-__all__ = ["decompose", "recompose", "recompose_to_level", "restrict"]
+__all__ = ["decompose", "recompose", "recompose_to_level", "prolong",
+           "restrict"]
 
-# Dims up to this size use the dense-matrix operators; longer dims need
-# the per-dim transform (prolong, and the correction through
-# ops/tridiag.py's solves), which is not ported yet.
-_MATMUL_MAX_N = 4096
+# The JAX package's switches, read at import as it reads them: a level
+# whose dims are all at most _MATMUL_MAX_N nodes takes the dense matrices
+# unless _SOLVER is "scan"; any other level takes the per-dim transform.
+_MATMUL_MAX_N = int(os.environ.get("MGARD_TPU_MATMUL_MAX_N", "4096"))
+_SOLVER = os.environ.get("MGARD_TPU_SOLVER", "matmul")
 
 # The JAX package's switch, read at import as it reads it: "1" applies
 # the dim-0 half of the correction with K13 where its gate admits the
@@ -62,6 +79,13 @@ _LPK = os.environ.get("MGARD_TPU_LPK", "0") == "1"
 
 def _level_dims(hier: Hierarchy, l: int) -> List[int]:
     return [d for d in range(hier.ndim) if hier.shape[d] > 1]
+
+
+def _use_matmul(hier: Hierarchy, l: int) -> bool:
+    """The JAX package's predicate: level ``l`` takes the dense
+    matrices."""
+    return _SOLVER == "matmul" and all(
+        hier.dims[d][l].n <= _MATMUL_MAX_N for d in _level_dims(hier, l))
 
 
 def _mass_matrix_np(h: np.ndarray) -> np.ndarray:
@@ -174,19 +198,12 @@ def _apply_matrix_chain(B: torch.Tensor, mats, dims) -> torch.Tensor:
     return B
 
 
-def _check_matmul(hier: Hierarchy, l: int) -> None:
-    if any(hier.dims[d][l].n > _MATMUL_MAX_N for d in _level_dims(hier, l)):
-        raise NotImplementedError(
-            f"dims over {_MATMUL_MAX_N} nodes need the tridiagonal-scan "
-            "transform (ROADMAP queue A, item 2), not ported yet")
-
-
 def extract_old(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
     """Restrict a dense level array to the parent level's nodes along
     ``axis``."""
     if lev.coarse_pos is None:
         return v
-    idx = torch.as_tensor(np.asarray(lev.coarse_pos), device=v.device)
+    idx = cached_tensor(lev.coarse_pos, torch.int64, v.device)
     return v.index_select(axis, idx)
 
 
@@ -195,6 +212,57 @@ def _slice_axis(v: torch.Tensor, start: int, stop: int, step: int,
     idx = [slice(None)] * v.dim()
     idx[axis] = slice(start, stop, step)
     return v[tuple(idx)]
+
+
+def _lerp_tables(lev: DimLevel):
+    """``(la, ra, w)`` over the level's n nodes (``transform.py:103-115``):
+    each node's left and right parent (their indices among the parents)
+    and its weight; a parent is its own left and right, weight 0."""
+    cache = lev.__dict__.setdefault("_lerp_tables", {})
+    if not cache:
+        nc = len(lev.coarse_pos)
+        la = np.zeros(lev.n, dtype=np.int64)
+        ra = np.zeros(lev.n, dtype=np.int64)
+        w = np.zeros(lev.n, dtype=np.float64)
+        la[lev.coarse_pos] = ra[lev.coarse_pos] = np.arange(nc)
+        la[lev.new_pos] = np.searchsorted(lev.coarse_pos, lev.new_left)
+        ra[lev.new_pos] = np.searchsorted(lev.coarse_pos, lev.new_right)
+        w[lev.new_pos] = lev.new_ratio
+        cache.update(la=la, ra=ra, w=w)
+    return cache["la"], cache["ra"], cache["w"]
+
+
+def prolong(c: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
+    """Interpolate parent-level values to this level's grid along ``axis``
+    (``transform.py:73``): parents keep their value, each new node gets
+    the lerp ``(1 - r) * left + r * right`` of its two parents (reference
+    ConstituentProlongationAddition, include/TensorProlongation.tpp:22-69).
+    Three branches, as in the JAX package: stride 2, front-interleaved
+    (both lerp neighbouring parents and interleave) and general (one
+    gather of each node's parents)."""
+    if lev.coarse_pos is None:
+        return c
+    nc = c.shape[axis]
+    if lev.coarse_is_stride2 or lev.front_nc is not None:
+        fc = nc if lev.coarse_is_stride2 else lev.front_nc
+        r = along_axis(lev.new_ratio, c, axis)
+        lo = c.narrow(axis, 0, fc - 1)
+        hi = c.narrow(axis, 1, fc - 1)
+        mid = (1 - r) * lo + r * hi
+        shape = list(c.shape)
+        shape[axis] = lev.n
+        out = c.new_empty(shape)
+        _slice_axis(out, 0, 2 * fc - 1, 2, axis).copy_(c.narrow(axis, 0, fc))
+        _slice_axis(out, 1, 2 * fc - 2, 2, axis).copy_(mid)
+        if fc < nc:
+            _slice_axis(out, 2 * fc - 1, lev.n, 1, axis).copy_(
+                c.narrow(axis, fc, nc - fc))
+        return out
+    la, ra, w = _lerp_tables(lev)
+    wl = along_axis(w, c, axis)
+    left = c.index_select(axis, cached_tensor(la, torch.int64, c.device))
+    right = c.index_select(axis, cached_tensor(ra, torch.int64, c.device))
+    return (1 - wl) * left + wl * right
 
 
 def restrict(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
@@ -245,16 +313,33 @@ def _extract_old_all(hier: Hierarchy, A: torch.Tensor, l: int):
 
 
 def _prolong_all(hier: Hierarchy, C: torch.Tensor, l: int):
+    if not _use_matmul(hier, l):
+        for d in _level_dims(hier, l):
+            C = prolong(C, hier.dims[d][l], d)
+        return C
     mats = _device_mats(hier, "_prolong_mats", l, _prolong_matrices(hier, l),
                         C)
     return _apply_matrix_chain(C, mats, _level_dims(hier, l))
 
 
 def _correction(hier: Hierarchy, detail: torch.Tensor, l: int):
-    """M_{l-1}^{-1} R_l M_l applied to a dense level-l detail array:
-    one dense matmul per dim, or under ``_LPK`` K13 along dim 0 and then
-    the matmuls of ``correction_matrices_fast``."""
+    """M_{l-1}^{-1} R_l M_l applied to a dense level-l detail array
+    (``transform.py:508``).  Where the level takes the dense matrices: one
+    matmul per dim, or under ``_LPK`` K13 along dim 0 and then the
+    matmuls of ``correction_matrices_fast``.  Elsewhere: ``mass_apply`` and
+    ``restrict`` along each dim, then the Thomas solve of level l-1 along
+    each dim (S1 on the card).  Decompose and recompose take the same
+    branch, so both run the same arithmetic."""
     dims = _level_dims(hier, l)
+    if not _use_matmul(hier, l):
+        B = detail
+        for d in dims:
+            B = mass_apply(B, hier.dims[d][l].h, d)
+            B = restrict(B, hier.dims[d][l], d)
+        for d in dims:
+            lev = hier.dims[d][l - 1]
+            B = mass_solve(B, lev.offdiag, lev.divisors, d)
+        return B
     if _LPK and dims == [0, 1, 2] and lk.rm0_supported(hier, l, detail):
         Y = lk.rm_dim0(hier, detail, l)
         mats = _device_mats(hier, "_corr_fast_mats", l,
@@ -282,7 +367,6 @@ def decompose(hier: Hierarchy, v: torch.Tensor) -> List[torch.Tensor]:
     pyramid: List[torch.Tensor] = [None] * (hier.L + 1)
     A = v
     for l in range(hier.L, 0, -1):
-        _check_matmul(hier, l)
         C = _extract_old_all(hier, A, l)
         if sk.gpk_supported(hier, l, A):
             detail = sk.gpk_detail(hier, A, l)
@@ -306,7 +390,6 @@ def recompose_to_level(hier: Hierarchy, pyramid: Sequence[torch.Tensor],
     (shape ``hier.shapes[lmax]``)."""
     A = pyramid[0]
     for l in range(1, lmax + 1):
-        _check_matmul(hier, l)
         detail = pyramid[l]
         C = A - _correction(hier, detail, l)
         if sk.gpk_supported(hier, l, detail):

@@ -20,6 +20,7 @@ from mgard_tpu_torch.ops import bp_kernels as bk
 from mgard_tpu_torch.ops import extract_kernels as ek
 from mgard_tpu_torch.ops import lpk_kernels as lk
 from mgard_tpu_torch.ops import stencil_kernels as sk
+from mgard_tpu_torch.ops import tridiag as td
 
 CARD = torch.device("cuda", 1)
 OTHER = torch.device("cuda", 0)
@@ -58,6 +59,9 @@ class FakeCuda:
 
     def reshape(self, *shape):
         return FakeCuda(self.t.reshape(*shape), self.device)
+
+    def movedim(self, source, destination):
+        return FakeCuda(self.t.movedim(source, destination), self.device)
 
     def __getitem__(self, idx):
         return FakeCuda(self.t[idx], self.device)
@@ -123,7 +127,7 @@ def _t(shape, dtype=torch.float32, device=CARD):
 
 
 def _every_wrapper(dev):
-    """Call each of the 17 counted wrappers once with tensors on
+    """Call each of the 18 counted wrappers once with tensors on
     ``dev``."""
     hier = mt.Hierarchy(SHAPE)
     L = hier.L
@@ -153,6 +157,8 @@ def _every_wrapper(dev):
     sk.run_dec_b20(hier, Cc, L)
     sk.run_dec_b1add(hier, V0, A, L)
     lk.rm_dim0(hier, A, L)
+    lev = hier.dims[1][L]
+    td.mass_solve(A, lev.offdiag, lev.divisors, 1)
 
 
 def test_every_wrapper_launches_on_its_tensors_device(card):
@@ -161,11 +167,11 @@ def test_every_wrapper_launches_on_its_tensors_device(card):
     _every_wrapper(CARD)
     assert _build.launch_counts() == {fn.__name__: 1
                                       for fn in _build._wrappers}
-    assert len(_build._wrappers) == 17 and len(calls) == 17
+    assert len(_build._wrappers) == 18 and len(calls) == 18
     for name, args, under in calls:
         assert under == CARD, name
         assert args[-1] == 1000 + CARD.index, name   # cuda:1's stream
-    assert asked == [CARD] * 17
+    assert asked == [CARD] * 18
 
 
 def test_a_second_device_launches_there(card):
@@ -233,3 +239,7 @@ def test_cpu_tensors_take_the_plain_versions(card):
     zmax, status = bk.bp_quant_max(seg, 2, C, 1.0)
     assert zmax.device.type == "cpu" and not calls
     assert _build.launch_counts()["bp_quant_max"] == 0
+    lev = mt.Hierarchy((9,)).dims[0][3]
+    x = td.mass_solve(torch.ones(9), lev.offdiag, lev.divisors, 0)
+    assert x.device.type == "cpu" and not calls
+    assert _build.launch_counts()["mass_solve"] == 0

@@ -1,0 +1,434 @@
+"""mgard_tpu_torch on long dims (over 4096 nodes) against mgard_tpu, on
+the CPU: the per-dim transform that the JAX package takes there (the lerp
+``prolong``, and the correction through ``mass_apply``, ``restrict`` and
+the Thomas solve), the two switches that choose it, the fast divisor
+recurrence of the hierarchy, and S1's chunked solve.
+
+* ``prolong`` and the fallback pyramids agree with JAX-on-CPU within
+  ``REL_BOUND * max|v|`` (the bound of ``test_torch_transform.py``).
+* The divisors are the JAX hierarchy's bit for bit.
+* ``mass_solve_plain`` repeats the JAX scan's operations bit for bit
+  (checked against a numpy replica of them); XLA's CPU backend contracts
+  ``d - w * carry`` into one fused multiply-add, so against the JAX
+  function itself it agrees within a few float ulps of ``max|x|``.
+* A numpy emulation of ``csrc/tridiag.cu`` (chunks started early from a
+  guess, the checks, the walks) equals the plain version bit for bit,
+  also where short overlaps force walks and on data with zeros, -0 and
+  NaN.
+* End to end (``test_torch_longdims_e2e.py``), each package decodes the
+  other's containers within the bound, with the same container sizes
+  and header fields.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import mgard_tpu
+from mgard_tpu.hierarchy import Hierarchy as JHierarchy
+from mgard_tpu.ops import transform as jt, tridiag as jtd
+
+import mgard_tpu_torch as mt
+from mgard_tpu_torch import api, hierarchy as th_mod
+from mgard_tpu_torch.hierarchy import DimLevel, Hierarchy, dyadic_num_levels
+from mgard_tpu_torch.io.carry import pyramid_from_numpy
+from mgard_tpu_torch.ops import bp_kernels as bk, transform as tt
+from mgard_tpu_torch.ops import tridiag as ttd
+
+ROOT = Path(__file__).resolve().parent.parent
+REL_BOUND = 1e-5
+LONG = [(5000,), (9, 4200), (5, 9, 4100)]
+# with _MATMUL_MAX_N patched to 16 in both packages
+SMALL = [(33, 33, 33), (17, 2, 17)]
+
+
+def _field(shape, seed=0):
+    """bench.py's smooth field (three cosine modes plus 1e-3 noise) at a
+    small size."""
+    x = [np.linspace(0.0, 1.0, s) for s in shape]
+    f = np.zeros(shape)
+    for k in (1, 3, 7):
+        term = np.ones(shape)
+        for d, xx in enumerate(x):
+            shp = [1] * len(shape)
+            shp[d] = len(xx)
+            term = term * np.cos(np.pi * k * xx + 0.1 * k * (d + 1)
+                                 ).reshape(shp)
+        f = f + term / k
+    rng = np.random.default_rng(seed)
+    return (f + 0.001 * rng.standard_normal(shape)).astype(np.float32)
+
+
+@pytest.fixture
+def short_matmul(monkeypatch):
+    """Both packages take the per-dim transform over 16 nodes a dim; the
+    JAX package reads its switch while it traces, so its compressor cache
+    is cleared around the test."""
+    monkeypatch.setattr(jt, "_MATMUL_MAX_N", 16)
+    monkeypatch.setattr(tt, "_MATMUL_MAX_N", 16)
+    mgard_tpu.release_cache()
+    mt.release_cache()
+    yield
+    mgard_tpu.release_cache()
+    mt.release_cache()
+
+
+# ---------------------------------------------------------------------------
+# prolong
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,placement,branch", [
+    ((33, 5), "tpu", "stride2"),
+    ((20, 9), "tpu", "front"),
+    ((20, 9), "reference", "general"),
+    ((11, 7, 30), "reference", "general"),
+], ids=str)
+def test_prolong_matches_jax(shape, placement, branch):
+    jh = JHierarchy(shape, placement=placement)
+    th = Hierarchy(shape, placement=placement)
+    for axis in range(len(shape)):
+        lev = th.dims[axis][th.L]
+        kind = ("stride2" if lev.coarse_is_stride2 else "front"
+                if lev.front_nc is not None else "general")
+        if axis == 0:
+            assert kind == branch
+        cshape = list(shape)
+        cshape[axis] = len(lev.coarse_pos)
+        c = _field(tuple(cshape), seed=axis)
+        want = np.asarray(jt.prolong(jnp.asarray(c), jh.dims[axis][jh.L],
+                                     axis))
+        got = tt.prolong(torch.from_numpy(c), lev, axis).numpy()
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert np.abs(got - want).max() <= REL_BOUND * np.abs(c).max()
+
+
+def test_lerp_tables_match_the_jax_loops():
+    """The general branch's vectorized tables are the JAX loops'."""
+    for shape in ((20,), (11,), (30,)):
+        lev = Hierarchy(shape, placement="reference").dims[0][-1]
+        la = np.zeros(lev.n, dtype=np.int64)
+        ra = np.zeros(lev.n, dtype=np.int64)
+        w = np.zeros(lev.n, dtype=np.float64)
+        inv_old = {int(p): j for j, p in enumerate(lev.coarse_pos)}
+        for pos in range(lev.n):
+            if pos in inv_old:
+                la[pos] = ra[pos] = inv_old[pos]
+        for k, pos in enumerate(lev.new_pos):
+            la[pos] = inv_old[int(lev.new_left[k])]
+            ra[pos] = inv_old[int(lev.new_right[k])]
+            w[pos] = lev.new_ratio[k]
+        got = tt._lerp_tables(lev)
+        for a, b in zip(got, (la, ra, w)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the per-dim transform
+# ---------------------------------------------------------------------------
+
+def _pyramids(shape, seed):
+    jh, th = JHierarchy(shape), Hierarchy(shape)
+    v = _field(shape, seed)
+    jp = [np.asarray(p) for p in
+          jax.jit(lambda a: jt.decompose(jh, a))(jnp.asarray(v))]
+    tp = [p.numpy() for p in tt.decompose(th, torch.from_numpy(v))]
+    return jh, th, v, jp, tp
+
+
+def _check_pyramids(shape, seed):
+    jh, th, v, jp, tp = _pyramids(shape, seed)
+    scale = float(np.abs(v).max())
+    assert [p.shape for p in tp] == [p.shape for p in jp]
+    assert max(float(np.abs(a - b).max()) for a, b in zip(jp, tp)) \
+        <= REL_BOUND * scale
+    rj = np.asarray(jax.jit(lambda *p: jt.recompose(jh, list(p)))(*jp))
+    rt = tt.recompose(th, pyramid_from_numpy(th, jp, "cpu")).numpy()
+    assert np.abs(rj - rt).max() <= REL_BOUND * scale
+    assert np.abs(rt - v).max() <= REL_BOUND * scale
+    return th
+
+
+@pytest.mark.parametrize("shape", LONG, ids=str)
+def test_long_dims_match_jax(shape):
+    th = _check_pyramids(shape, seed=1)
+    assert not tt._use_matmul(th, th.L)
+
+
+@pytest.mark.parametrize("shape", SMALL, ids=str)
+def test_forced_per_dim_transform_matches_jax(shape, short_matmul):
+    th = _check_pyramids(shape, seed=2)
+    assert [tt._use_matmul(th, l) for l in range(1, th.L + 1)] \
+        == [jt._use_matmul(JHierarchy(shape), l)
+            for l in range(1, th.L + 1)]
+    assert not tt._use_matmul(th, th.L)
+
+
+@pytest.mark.parametrize("shape", [(9, 4200), (33, 33, 33)], ids=str)
+def test_fallback_correction_matches_jax(shape, short_matmul):
+    jh, th = JHierarchy(shape), Hierarchy(shape)
+    l = th.L
+    det = _field(th.shapes[l], seed=3)
+    want = np.asarray(jax.jit(lambda a: jt._correction(jh, a, l))(
+        jnp.asarray(det)))
+    got = tt._correction(th, torch.from_numpy(det), l).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= REL_BOUND * np.abs(det).max()
+
+
+def test_solver_scan_takes_the_per_dim_transform(monkeypatch):
+    monkeypatch.setattr(tt, "_SOLVER", "scan")
+    th = Hierarchy((17, 17))
+    assert not any(tt._use_matmul(th, l) for l in range(1, th.L + 1))
+    calls = []
+    solve = ttd.mass_solve
+
+    def counted(*args):
+        calls.append(args[-1])
+        return solve(*args)
+
+    monkeypatch.setattr(tt, "mass_solve", counted)
+    v = _field((17, 17))
+    p = tt.decompose(th, torch.from_numpy(v))
+    assert calls == [0, 1] * th.L
+    out = tt.recompose(th, p).numpy()
+    assert np.abs(out - v).max() <= REL_BOUND * np.abs(v).max()
+
+
+@pytest.mark.parametrize("env,solver,max_n", [
+    ({}, "matmul", 4096),
+    ({"MGARD_TPU_SOLVER": "scan"}, "scan", 4096),
+    ({"MGARD_TPU_MATMUL_MAX_N": "64"}, "matmul", 64),
+], ids=str)
+def test_switches_are_read_at_import(env, solver, max_n):
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("MGARD_TPU_SOLVER", "MGARD_TPU_MATMUL_MAX_N")}
+    out = subprocess.run(
+        [sys.executable, "-c", "import mgard_tpu_torch.ops.transform as t;"
+         " print(t._SOLVER, t._MATMUL_MAX_N)"], check=True, cwd=ROOT,
+        env={**base, **env}, capture_output=True, text=True).stdout.split()
+    assert out == [solver, str(max_n)]
+
+
+# ---------------------------------------------------------------------------
+# the divisors
+# ---------------------------------------------------------------------------
+
+def _same_levels(th, jh):
+    assert th.L == jh.L and th.shapes == jh.shapes
+    for d in range(jh.ndim):
+        for l in range(jh.L + 1):
+            for f in dataclasses.fields(DimLevel):
+                a = getattr(th.dims[d][l], f.name)
+                b = getattr(jh.dims[d][l], f.name)
+                if isinstance(b, np.ndarray):
+                    assert a.dtype == b.dtype, (d, l, f.name)
+                    assert a.tobytes() == b.tobytes(), (d, l, f.name)
+                else:
+                    assert a == b, (d, l, f.name)
+
+
+@pytest.mark.parametrize("shape,coords", [
+    ((5,), None), ((4097,), None), (((1 << 20) + 1,), None),
+    ((30001,), None), ((9, 6000), None), ((20000,), "random"),
+], ids=str)
+def test_divisors_bit_for_bit(shape, coords):
+    """Uniform 2^k+1 and other lengths, a second dim, and a nonuniform
+    grid: every table, the divisors among them, is the JAX hierarchy's
+    byte for byte."""
+    if coords is not None:
+        rng = np.random.default_rng(7)
+        coords = [np.sort(rng.uniform(0, 3, s)) for s in shape]
+    _same_levels(Hierarchy(shape, coordinates=coords),
+                 JHierarchy(shape, coordinates=coords))
+
+
+@pytest.mark.parametrize("overlap", [1, 2], ids=str)
+def test_divisor_walks(overlap, monkeypatch):
+    """With an overlap too short for the chunks' runs to meet the exact
+    ones, the walks repair every chunk."""
+    monkeypatch.setattr(th_mod, "_DIV_OVERLAP", overlap)
+    rng = np.random.default_rng(overlap)
+    x = np.sort(rng.uniform(0, 1, 12345))
+    jh = JHierarchy((12345,), coordinates=[x])
+    assert jh.dims[0][-1].divisors.tobytes() == th_mod._thomas_divisors(
+        *_diag_off(jh.dims[0][-1].h)).tobytes()
+    _same_levels(Hierarchy((30001,)), JHierarchy((30001,)))
+
+
+def _diag_off(h):
+    n = len(h) + 1
+    diag = np.empty(n)
+    diag[0], diag[-1] = h[0] / 3, h[-1] / 3
+    diag[1:-1] = (h[:-1] + h[1:]) / 3
+    return diag, h / 6
+
+
+# ---------------------------------------------------------------------------
+# the solve: the plain version and S1's algorithm
+# ---------------------------------------------------------------------------
+
+def _replica(b, offdiag, divisors):
+    """The JAX scan's operations on axis 0, one rounding each, in numpy
+    (float32 scalars stay float32)."""
+    dt = b.dtype.type
+    off = np.asarray(offdiag).astype(dt)
+    div = np.asarray(divisors).astype(dt)
+    w = off / div[:-1]
+    n = len(b)
+    d = [b[0]]
+    for i in range(1, n):
+        d.append(b[i] - w[i - 1] * d[-1])
+    x = [None] * n
+    x[n - 1] = d[n - 1] / div[n - 1]
+    for i in range(n - 2, -1, -1):
+        x[i] = (d[i] - off[i] * x[i + 1]) / div[i]
+    return np.stack(x)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform",
+                                                        "nonuniform"])
+def test_mass_solve_plain_matches_jax(dtype, uniform):
+    shape = (9, 17, 6)
+    rng = np.random.default_rng(int(uniform))
+    coords = None if uniform else [np.sort(rng.uniform(0, 1, s))
+                                   for s in shape]
+    jh = JHierarchy(shape, coordinates=coords)
+    eps = float(np.finfo(dtype).eps)
+    for axis in range(3):
+        lev = jh.dims[axis][jh.L]
+        b = rng.standard_normal(shape).astype(dtype)
+        got = ttd.mass_solve_plain(torch.from_numpy(b), lev.offdiag,
+                                   lev.divisors, axis).numpy()
+        rep = np.moveaxis(_replica(np.moveaxis(b, axis, 0), lev.offdiag,
+                                   lev.divisors), 0, axis)
+        assert got.dtype == dtype and got.tobytes() == rep.tobytes()
+        want = np.asarray(jax.jit(lambda u: jtd.mass_solve(
+            u, lev.offdiag, lev.divisors, axis))(jnp.asarray(b)))
+        assert np.abs(got - want).max() <= 16 * eps * np.abs(want).max()
+        # the wrapper takes the plain version for a CPU tensor
+        assert ttd.mass_solve(torch.from_numpy(b), lev.offdiag,
+                              lev.divisors, axis).numpy().tobytes() \
+            == got.tobytes()
+
+
+def _bits(a):
+    return a.view(np.int32 if a.dtype == np.float32 else np.int64)
+
+
+def _s1_emulation(b, offdiag, divisors, chunk, overlap):
+    """csrc/tridiag.cu in numpy on (n, m) ``b``: the chunks' sweeps from
+    their guesses, then the checks and walks, forward and then backward
+    (the warps' batches of 32 chunks are a schedule, not arithmetic)."""
+    w, off, div = ttd.solve_tables(offdiag, divisors,
+                                   torch.from_numpy(b).dtype)
+    n, m = b.shape
+    nchunks = -(-n // chunk)
+    dd = np.empty_like(b)
+    x = np.empty_like(b)
+    probe = np.empty((nchunks, m), dtype=b.dtype)
+    for c in range(nchunks):
+        s, e = c * chunk, min(n, (c + 1) * chunk)
+        p = s - overlap if s > overlap else 0
+        d = b[p].copy()
+        if p == s:
+            dd[s] = d
+        for i in range(p + 1, e):
+            if i == s:
+                probe[c] = d
+            d = b[i] - w[i - 1] * d
+            if i >= s:
+                dd[i] = d
+    for j in range(m):
+        walked = 0
+        for c in range(1, nchunks):
+            i = c * chunk
+            if i <= walked or _bits(probe[c, j]) == _bits(dd[i - 1, j]):
+                continue
+            prev = dd[i - 1, j]
+            while i < n:
+                v = b[i, j] - w[i - 1] * prev
+                if _bits(v) == _bits(dd[i, j]):
+                    break
+                dd[i, j] = prev = v
+                i += 1
+            walked = i
+    for c in range(nchunks):
+        s, e = c * chunk, min(n, (c + 1) * chunk)
+        p = min(e - 1 + overlap, n - 1)
+        xv = dd[p] / div[p]
+        if p == e - 1:
+            x[p] = xv
+        for i in range(p - 1, s - 1, -1):
+            if i == e - 1:
+                probe[c] = xv
+            xv = (dd[i] - off[i] * xv) / div[i]
+            if i < e:
+                x[i] = xv
+    for j in range(m):
+        walked = n
+        for c in range(nchunks - 2, -1, -1):
+            i = (c + 1) * chunk - 1
+            if i >= walked or _bits(probe[c, j]) == _bits(x[i + 1, j]):
+                continue
+            prev = x[i + 1, j]
+            while i >= 0:
+                v = (dd[i, j] - off[i] * prev) / div[i]
+                if _bits(v) == _bits(x[i, j]):
+                    break
+                x[i, j] = prev = v
+                i -= 1
+            walked = i
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+@pytest.mark.parametrize("chunk,overlap", [(64, 64), (50, 1), (37, 3),
+                                           (700, 64), (701, 64)], ids=str)
+def test_s1_algorithm_bit_for_bit(dtype, chunk, overlap):
+    n = 701
+    lev = Hierarchy((n,), coordinates=[np.sort(
+        np.random.default_rng(0).uniform(0, 1, n))]).dims[0][-1]
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((n, 5)).astype(dtype)
+    b[:, 1] = 0.0                    # a line of zeros
+    b[::3, 2] = -0.0                 # signed zeros
+    b[300, 3] = np.nan               # NaN from node 300 on, and back
+    b[:, 4] *= 1e-30                 # small values
+    with np.errstate(invalid="ignore"):
+        got = _s1_emulation(b, lev.offdiag, lev.divisors, chunk, overlap)
+    want = ttd.mass_solve_plain(torch.from_numpy(b), lev.offdiag,
+                                lev.divisors, 0).numpy()
+    fin = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got), fin)
+    assert _bits(got[fin]).tobytes() == _bits(want[fin]).tobytes()
+
+
+@pytest.mark.parametrize("n,blocks", [(280953867, 1), (1 << 29, 1),
+                                      ((1 << 29) + 1, 2)], ids=str)
+def test_one_domain_fits_one_k2_launch(n, blocks):
+    """The default planner cuts a float32 series over 2^29 values into
+    slabs, so no domain has more segments than one K2 launch takes."""
+    cfg = mt.Config(max_memory_footprint=1 << 62)
+    assert api.plan_blocks((n,), np.float32, cfg, "cpu") == blocks
+    longest = int(np.diff(api._block_edges(n, blocks)).max())
+    levels = dyadic_num_levels(longest)
+    levels += (1 << levels) + 1 != longest
+    assert levels + 1 <= bk.SEGMENT_CAPACITY
+
+
+def test_chunk_length():
+    assert ttd.chunk_length(33, 1 << 20) == 33          # one chunk a line
+    assert ttd.chunk_length(4097, 8481) == 257          # 16 chunks a line
+    assert ttd.chunk_length(100, 1) == 100              # under 256 nodes
+    c = ttd.chunk_length((1 << 28) + 1, 1)              # a 1-D series
+    assert -(-((1 << 28) + 1) // c) <= 1 << 17 and c >= 256
