@@ -12,9 +12,10 @@ GPK kernels, then with the two-pass ones, then with the LPK correction;
 on the flat PYRAMID stream; the default per-group codec at 128^3; the
 512^3 field as float64; then with s-norm error control; then a 1024^3
 field split into blocks; then long dims, over 4096 nodes, whose
-correction solves with S1), checks every result, and prints the kernels'
-JSON line, the card's line and a last line ``{"ok": true, "device":
-{...}}``.  Any failure raises and the
+correction solves with S1; then the FINE and LEVEL_BLOCKS layouts and the
+SINGLEDIM and HYBRID decompositions), checks every result, and prints
+the kernels' JSON line, the card's line and a last line ``{"ok": true,
+"device": {...}}``.  Any failure raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 doing anything.
 
@@ -70,6 +71,9 @@ Phases (each prints its wall time):
                  encode/decode timed in turns with LPK off;
   8. flat      - the same field with Config(layout=PYRAMID): the flat
                  chunked stream, K12 and K11 once each, K2-K4 not at all;
+                 the encode's peak memory within the planner's factor
+                 (``api.footprint_per_byte``), as in each phase below
+                 that reports a peak;
   9. per-group - the default Config at 128^3 (under 2^22 values, so the
                  per-group codec; no codec kernel launches);
  10. float64   - the 512^3 field as float64, default Config: the wide
@@ -83,7 +87,24 @@ Phases (each prints its wall time):
                  512^3 s = 1 on the flat PYRAMID stream (K12/K11 once);
                  128^3 s = -1 REL 1e-6 (per-group); 256^3 float64 s = 0
                  (wide);
- 12. multi-block - a 1024^3 float32 field (bench.py's, built in float32
+ 12. layouts   - the 512^3 field through the API with Config(layout=FINE),
+                 Config(layout=LEVEL_BLOCKS) (both launch as the flat
+                 path), Config(decomposition=SINGLEDIM) (S1 once a level
+                 and dim each way, 27 each way, K12/K11 once; S1's share
+                 of the device encode and decode) and
+                 Config(decomposition=HYBRID, num_local_levels=1) (global
+                 grid 320^3: K1 where its gate admits the global levels,
+                 in the encode and again in the decode, K5/K6 where
+                 theirs does, K12/K11 once), each with its error, ratio,
+                 device times and encode peak, and K12/K11 bit for bit
+                 against their plain versions on its own stream (K12's
+                 words the container's); HYBRID's K1 bit for bit at each
+                 level its gate admits, on the encode's and the decode's
+                 inputs; HYBRID with two local levels' encode peak; S1
+                 bit for bit against its plain version at SINGLEDIM's
+                 top-level solves (257, 512, 512) dim 0, (257, 257, 512)
+                 dim 1, (257, 257, 257) dim 2;
+ 13. multi-block - a 1024^3 float32 field (bench.py's, built in float32
                  slab by slab), which the default Config splits into two
                  (512, 1024, 1024) slabs along dim 0: compress and
                  decompress through the API with the launch counters set
@@ -94,8 +115,8 @@ Phases (each prints its wall time):
                  stream the container's, K4 decoding it) and again at
                  tolerance 1e-6, where the stream passes 2^28 words; the
                  same container and output with one block in flight (the
-                 serial order) and at the default depth, timed in turns
-                 (1, 2, 2, 1); the pinned host cache and the process's
+                 serial order) and at the default depth, one turn each;
+                 the pinned host cache and the process's
                  peak RSS; one block's device encode/decode by CUDA
                  events and the encode's peak memory against the JAX
                  estimate of 4.485x; REL 1e-4 (norm max|v| block by
@@ -105,7 +126,7 @@ Phases (each prints its wall time):
                  a (16, 4096, 4096) field with adjust_shape, stored as
                  (256, 256, 4096) and returned in its own shape, K1-K6
                  bit for bit against their plain versions at that shape;
- 13. long dims - dims over 4096 nodes take the per-dim transform, its
+ 14. long dims - dims over 4096 nodes take the per-dim transform, its
                  correction solving with S1 (``csrc/tridiag.cu``); each
                  case with its own launch counters, bench.py's kind of
                  field built in float32 on the card from seed 0, ABS
@@ -124,7 +145,11 @@ Phases (each prints its wall time):
                  plain version (the kernels line's entry, dim 0, with a
                  dense inverse tensordot as its library time); for (a)
                  and (b) the encode's peak device memory and the tables
-                 it keeps on the card against the planner's 4.485x, and
+                 within it against the planner's factor, no table left
+                 on the card by a call, the ratio and error those before
+                 the tables' memory repair, for (a) the top level's
+                 tables copied from the host against built on the card,
+                 and
                  K1-K6 bit for bit against their plain versions at their
                  own shapes, K3's stream the container's (K2 over (a)'s
                  30 segments in one launch); (c) (8192, 8192) at s = 0,
@@ -137,19 +162,22 @@ Phases (each prints its wall time):
                  cross-decoded with the default both ways, device times
                  in turns with the matmul correction, S1 bit for bit
                  against its plain version at every level (9 to 1);
- 14. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 15. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
                  K5/K6 with K13): the pyramids agree and each container
                  decodes on both within the tolerance; with finite s at
                  65^3 (s = 0) and on a nonuniform (33, 65, 65) grid
                  (s = 1), segmented, each decode on the card through K11;
- 15. summary   - the kernels line (S1 after K1-K17), the card line, the
+                 at 65^3 HYBRID with two local levels and on a nonuniform
+                 grid, LEVEL_BLOCKS and HYBRID at s = 0, FINE in float64;
+ 16. summary   - the kernels line (S1 after K1-K17), the card line, the
                  ok line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import resource
@@ -196,8 +224,21 @@ NO_PATH_KERNELS = SPLIT_KERNELS + CORE_KERNELS
 LPK_REL_TOL = 1e-5
 
 
+# Every log line also goes to chiprun_out/chip_smoke.log beside the
+# script (git-ignored), whole where a terminal keeps only the output's end.
+LOG_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "chip_smoke.log")
+_log_file = None
+
+
 def log(msg: str) -> None:
+    global _log_file
     print(msg, flush=True)
+    if _log_file is None:
+        os.makedirs(os.path.dirname(LOG_FILE), exist_ok=True)
+        _log_file = open(LOG_FILE, "w")
+    _log_file.write(msg + "\n")
+    _log_file.flush()
 
 
 def smooth_field_host(shape, seed=SEED):
@@ -240,11 +281,13 @@ class Phase:
         return False
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean ms of ``fn`` over ``reps`` runs, by CUDA events, after one
-    warm-up run."""
+    warm-up run (none where ``warm`` is false: the caller has just run
+    it)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -998,11 +1041,11 @@ def time_parts(v_host, buf):
     out.cpu()
     t5 = time.perf_counter()
     del out
-    # in turns, on / off / off / on, to see the spread within this card;
-    # off is the gate refusing every level, so the matmul form runs
+    # on, then off: the gate refusing every level, so the matmul form
+    # runs
     gate = sk.gpk_supported
     try:
-        for on in (True, False, False, True):
+        for on in (True, False):
             sk.gpk_supported = gate if on else (lambda hier, l, A: False)
             time_device(comp, v, exps, words,
                         "GPK on (K5/K6)" if on else "GPK off (matmul form)")
@@ -1194,12 +1237,18 @@ def drive(label, v_host, config, tol=TOL, s=float("inf"), mode="abs"):
 
 def flat_path(v_host, main_counts):
     """The 512^3 field on the flat PYRAMID stream: K12 and K11 once each,
-    the transform's kernels as on the segmented path, K2-K4 never."""
+    the transform's kernels as on the segmented path, K2-K4 never; the
+    encode's peak memory."""
+    import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.config import Layout
 
-    header, _, _, counts = drive("flat path", v_host,
-                                 mt.Config(layout=Layout.PYRAMID))
+    header, _, comp, counts = drive("flat path", v_host,
+                                    mt.Config(layout=Layout.PYRAMID))
+    v = torch.from_numpy(v_host).cuda()
+    encode_peak("flat path", comp, v, header.tolerance)
+    del v
+    torch.cuda.empty_cache()
     want = dict(main_counts, bp_quant_max=0, bp_quant_condense=0,
                 bp_decode_condense_f32=0, bp_encode_condense=1,
                 bp_decode_condense=1)
@@ -1225,11 +1274,17 @@ def pergroup_path(shape=(128, 128, 128), seed=SEED):
 
 def float64_path(v_host):
     """The 512^3 field as float64, default Config: the wide chunked codec
-    (2048 groups a chunk), the transform in float64 matmuls, no kernel."""
+    (2048 groups a chunk), the transform in float64 matmuls, no kernel;
+    the encode's peak memory."""
+    import torch
     import mgard_tpu_torch as mt
 
     header, _, comp, counts = drive("float64 path",
                                     v_host.astype(np.float64), mt.Config())
+    v = torch.from_numpy(v_host.astype(np.float64)).cuda()
+    encode_peak("float64 path", comp, v, header.tolerance)
+    del v
+    torch.cuda.empty_cache()
     launched = {k: n for k, n in counts.items() if n}
     if header.lossless != int(mt.Lossless.BITPLANE) \
             or (header.chunk_groups or 2048) != 2048 \
@@ -1237,6 +1292,296 @@ def float64_path(v_host):
         raise AssertionError(f"float64 path: lossless {header.lossless}, "
                              f"chunk groups {header.chunk_groups}, "
                              f"launches {launched}")
+
+
+def k1_levels(hier) -> int:
+    """K1's launches in one decompose of ``hier`` on the card: the levels
+    its gate admits (float32 data)."""
+    import torch
+    from mgard_tpu_torch.ops import extract_kernels as xk
+    probe = torch.empty(1, device="cuda")
+    return sum(xk.extract_supported(hier, l, probe)
+               for l in range(1, hier.L + 1))
+
+
+def solve_shares(comp, v, header, sections):
+    """S1's ms and share of one device encode and one decode (its calls
+    timed inside them), and the number of its calls in each."""
+    import mgard_tpu_torch as mt
+    bound = header.tolerance
+    exps, words = comp.stream_tensors(header, sections)
+    enc_ms = cuda_ms(lambda: comp.encode_device(v, bound), 1)
+    dec_ms = cuda_ms(lambda: comp.decode_device(
+        exps, words, bound, mt.Lossless(header.lossless)), 1)
+    with SolveProbe(comp.hier) as enc:
+        comp.encode_device(v, bound)
+    with SolveProbe(comp.hier) as dec:
+        comp.decode_device(exps, words, bound, mt.Lossless(header.lossless))
+    del exps, words
+    out = []
+    for label, probe, ms in (("encode", enc, enc_ms), ("decode", dec,
+                                                       dec_ms)):
+        t = probe.times()
+        solve = sum(x[-1] for x in t)
+        out.append(f"S1 {solve:.3f} ms of the {label}'s {ms:.3f} ms "
+                   f"({solve / ms:.2%}) in {len(t)} calls")
+    return "; ".join(out)
+
+
+def check_stream_kernels(label, comp, v, tol, sections):
+    """K12 and K11 bit for bit against their plain versions on the flat
+    stream that ``comp`` quantizes from ``v`` on the card (its
+    ``_quantized_flat``, in a table scope as the encode runs it): K12's
+    exponents and words must be the container's ``sections``, and K11 on
+    the container's words must give the stream back.  Returns the
+    stream."""
+    import torch
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk, tridiag
+
+    with tridiag.table_scope():
+        q, status = comp._quantized_flat(v, tol)
+    if int(status):
+        raise AssertionError(f"{label}: nonzero flat status {int(status)}")
+    n, C = q.numel(), comp.chunk_groups
+    nc = bitplane.num_chunks_tiled(n, C)
+    zc = bitplane._zigzag(bk.chunked(q, nc, C))
+    e = bitplane._chunk_exponents(zc)
+    offsets = bitplane._offsets(e)
+    nwords = int(e.sum()) * C
+    words = torch.zeros(bitplane.max_words(n, C), dtype=torch.int32,
+                        device=v.device)
+    words_plain = torch.zeros_like(words)
+    bk.bp_encode_condense(zc, offsets, e, words)
+    bk.bp_encode_condense_plain(zc, offsets, e, words_plain)
+    errs = {"bp_encode_condense": max_abs_diff(words, words_plain)}
+    del zc, words_plain
+    stored = np.frombuffer(sections[0], dtype=np.uint8)
+    e_host = e.cpu().numpy()
+    stream = torch.from_numpy(
+        np.frombuffer(sections[1], dtype="<i4").astype(np.int32)).cuda()
+    theirs = bool(np.array_equal(e_host[:len(stored)], stored)
+                  and not e_host[len(stored):].any()
+                  and torch.equal(stream, words[:nwords]))
+    del words
+    got = bk.bp_decode_condense(stream, C, offsets, e, n)
+    errs["bp_decode_condense"] = max_abs_diff(
+        got, bk.bp_decode_condense_plain(stream, C, offsets, e, n))
+    back = torch.equal(got, q)
+    del got, stream
+    log(f"{label}: K12 and K11 against their plain versions on its "
+        f"{n}-value stream ({nc} chunks, {nwords} words; tolerance 0): "
+        f"{errs}; K12's stream is the container's {theirs}; K11 gives the "
+        f"stream back {back}")
+    if any(errs.values()) or not (theirs and back):
+        raise AssertionError(f"{label}: K12/K11 on its stream: {errs}, "
+                             f"the container's {theirs}, back {back}")
+    return q
+
+
+def check_hybrid_kernels(comp, v, q):
+    """K1 (K5 and K6 where their gates admit) bit for bit against the
+    plain versions at every level of HYBRID's global grid that the gates
+    admit, on both of K1's inputs: down the global decomposition of the
+    local levels' output (run on the card), and down the decode's split
+    of the global part, cast to the data's dtype from the stream ``q``
+    (which K11 gives back from the container).  K1 must be checked at
+    every level it is launched at, each way."""
+    import torch
+    from mgard_tpu_torch.ops import transform_hybrid as th, tridiag
+
+    hc, k, ops = comp._hybrid_hc, comp._hybrid_k, comp._hybrid_ops
+    shapes = th.padded_shape(tuple(v.shape), k)
+    A = v
+    with tridiag.table_scope():
+        for lvl in range(k):
+            A, _ = th._local_decompose_level(
+                th._edge_pad(A, shapes[lvl]),
+                None if ops is None else ops[lvl])
+    enc = level_kernel_errs(hc, A)
+    del A
+    fine = q[:hc.ndof()].to(v.dtype).reshape(hc.shape)
+    dec = level_kernel_errs(hc, fine, split=True)
+    del fine
+    torch.cuda.empty_cache()
+    levels = k1_levels(hc)
+    log(f"HYBRID kernels on the global grid {hc.shape} (one entry a level, "
+        f"tolerance 0): encode {enc}; decode's split {dec}")
+    bad = {k_: x for k_, x in list(enc.items()) + list(dec.items())
+           if any(y != 0.0 for y in x)}
+    if bad or len(enc["extract_coarse_3d"]) != levels \
+            or len(dec["extract_coarse_3d"]) != levels:
+        raise AssertionError(f"HYBRID kernels: {bad}, K1 checked at "
+                             f"{len(enc['extract_coarse_3d'])} / "
+                             f"{len(dec['extract_coarse_3d'])} levels of "
+                             f"{levels}")
+
+
+def layout_paths(v_host, flat_counts):
+    """The FINE and LEVEL_BLOCKS layouts and the SINGLEDIM and HYBRID
+    (one local level) decompositions at 512^3 through the API, each with
+    its own launch counters, error, ratio, device times and encode peak:
+    FINE and LEVEL_BLOCKS launch as the flat PYRAMID path (the MULTIDIM
+    transform's kernels, K12 and K11 once); SINGLEDIM launches S1 once a
+    level and dim each way and K12/K11 once; HYBRID launches K1 where
+    its gate admits the global levels (encode and decode: the decode
+    splits the float global part in fine order), K5/K6 where theirs
+    does, K12/K11 once.  On each path K12 and K11 are held against their
+    plain versions on its stream (:func:`check_stream_kernels`), on
+    HYBRID K1, K5 and K6 on the global grid (:func:`check_hybrid_kernels`);
+    then the encode peak of HYBRID with two local levels."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    zero = {k: 0 for k in flat_counts}
+    results = {}
+    cases = (("FINE", mt.Config(layout=mt.Layout.FINE)),
+             ("LEVEL_BLOCKS", mt.Config(layout=mt.Layout.LEVEL_BLOCKS)),
+             ("SINGLEDIM",
+              mt.Config(decomposition=mt.Decomposition.SINGLEDIM)),
+             ("HYBRID", mt.Config(decomposition=mt.Decomposition.HYBRID,
+                                  num_local_levels=1)))
+    for label, cfg in cases:
+        header, buf, comp, counts = drive(f"{label} path", v_host, cfg)
+        hier = comp.hier
+        if label in ("FINE", "LEVEL_BLOCKS"):
+            want = dict(flat_counts)
+        elif label == "SINGLEDIM":
+            want = dict(zero, bp_encode_condense=1, bp_decode_condense=1)
+            want[SOLVE_NAME] = 2 * hier.effective_ndim * hier.L
+        else:
+            hc = comp._hybrid_hc
+            gpk = int(sk.gpk_structure_ok(hc, hc.L))
+            want = dict(zero, bp_encode_condense=1, bp_decode_condense=1,
+                        extract_coarse_3d=2 * k1_levels(hc),
+                        gpk_detail=gpk, gpk_prolong_add=gpk)
+            log(f"HYBRID path: global grid {hc.shape}, L = {hc.L}, K1 "
+                f"levels {k1_levels(hc)}, GPK at the top level {bool(gpk)}")
+        expect_launches(f"{label} path", counts, want)
+        if header.lossless != int(mt.Lossless.BITPLANE) \
+                or header.decomposition != (2 if label == "HYBRID"
+                                            else int(cfg.decomposition)):
+            raise AssertionError(f"{label} path: header {header}")
+        v = torch.from_numpy(v_host).cuda()
+        sections = fmt.read_container(buf)[1]
+        q = check_stream_kernels(f"{label} path", comp, v, header.tolerance,
+                                 sections)
+        if label == "HYBRID":
+            check_hybrid_kernels(comp, v, q)
+        del q
+        peak = encode_peak(f"{label} path", comp, v, header.tolerance)
+        if label == "SINGLEDIM":
+            log(f"SINGLEDIM path: {solve_shares(comp, v, header, sections)}")
+        del v
+        torch.cuda.empty_cache()
+        results[label] = (v_host.nbytes / len(buf), peak)
+    # HYBRID with two local levels: the encode's peak (the planner's
+    # HYBRID factor covers both)
+    comp = mt.get_compressor(SHAPE, np.float32, device="cuda",
+                             config=mt.Config(
+                                 decomposition=mt.Decomposition.HYBRID,
+                                 num_local_levels=2))
+    v = torch.from_numpy(v_host).cuda()
+    results["HYBRID k = 2"] = (None, encode_peak("HYBRID k = 2", comp, v,
+                                                 TOL))
+    del v, comp
+    torch.cuda.empty_cache()
+    log(f"layout paths (ratio, encode peak x): {results}")
+    return results
+
+
+def check_singledim_s1(v_host):
+    """S1 bit for bit against its plain version at the SINGLEDIM
+    decomposition's top-level solves of the 512^3 field: (257, 512, 512)
+    along dim 0, (257, 257, 512) along dim 1, (257, 257, 257) along dim 2
+    (the last axis, moved first), each on the correction's own input."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import transform, tridiag
+
+    hier = mt.Hierarchy(SHAPE)
+    l = hier.L
+    A = torch.from_numpy(v_host).cuda()
+    got = []
+    for d in transform._level_dims(hier, l):
+        lev, clev = hier.dims[d][l], hier.dims[d][l - 1]
+        old = transform.extract_old(A, lev, d)
+        detail = A - transform.prolong(old, lev, d)
+        B = transform.restrict(tridiag.mass_apply(detail, lev.h, d), lev, d)
+        del detail
+        x = tridiag.mass_solve(B, clev.offdiag, clev.divisors, d)
+        plain = tridiag.mass_solve_plain(B, clev.offdiag, clev.divisors, d)
+        with tridiag.table_scope():     # its tables copied once
+            ms = cuda_ms(lambda: tridiag.mass_solve(B, clev.offdiag,
+                                                    clev.divisors, d), 3)
+        bound = bound_ms(2 * B.numel() * B.element_size(), 0)[0]
+        got.append((tuple(B.shape), d, bits_equal(x, plain), round(ms, 4),
+                    round(bound, 4)))
+        A = old + x
+        del B, x, plain, old
+    del A
+    torch.cuda.empty_cache()
+    log(f"S1 at the SINGLEDIM top-level solves (shape, axis, bit-identical, "
+        f"ms, bound ms): {got}")
+    if [g[0] for g in got] != [(257, 512, 512), (257, 257, 512),
+                               (257, 257, 257)] \
+            or not all(g[2] for g in got):
+        raise AssertionError(f"S1 at the SINGLEDIM shapes: {got}")
+
+
+def layout_reference_check(shape=(65, 65, 65), seed=6, tol=1e-3):
+    """Card against CPU on the new configurations at a small shape (the
+    chunked codec, adapt_lossless off): HYBRID with two local levels,
+    LEVEL_BLOCKS and HYBRID at s = 0, FINE in float64, HYBRID on a
+    nonuniform grid (each block's own operators).  The containers made on
+    each decode on both within the tolerance (max|v - out|, or
+    ||v - out||_s by the port's norms)."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import _build
+
+    D, Lt = mt.Decomposition, mt.Layout
+    rng = np.random.default_rng(seed)
+    coords = []
+    for n in shape:
+        c = np.sort(rng.uniform(size=n))
+        c[0], c[-1] = 0.0, 1.0
+        coords.append(c)
+    v32 = smooth_field_host(shape, seed=seed)
+    cases = (("HYBRID k = 2", v32, D.HYBRID, Lt.PYRAMID_SEG, 2, np.inf,
+              None),
+             ("LEVEL_BLOCKS s = 0", v32, D.MULTIDIM, Lt.LEVEL_BLOCKS, 1,
+              0.0, None),
+             ("HYBRID s = 0", v32, D.HYBRID, Lt.PYRAMID_SEG, 1, 0.0, None),
+             ("FINE float64", v32.astype(np.float64), D.MULTIDIM, Lt.FINE,
+              1, np.inf, None),
+             ("HYBRID nonuniform", v32, D.HYBRID, Lt.PYRAMID_SEG, 1, np.inf,
+              coords))
+    for label, v, dec, layout, k, s, co in cases:
+        cfg = mt.Config(decomposition=dec, layout=layout, num_local_levels=k,
+                        adapt_lossless=False)
+        hier = mt.Hierarchy(shape, coordinates=co)
+        _build.reset_launches()
+        b_gpu = mt.compress(v, tol, s=s, config=cfg, coordinates=co)
+        b_cpu = mt.compress(v, tol, s=s, config=cfg, coordinates=co,
+                            device="cpu")
+        errs = []
+        for b in (b_gpu, b_cpu):
+            for d in ("cuda", "cpu"):
+                out = mt.decompress(b, device=d)
+                errs.append(float(np.abs(out.astype(np.float64) - v).max())
+                            if np.isinf(s) else
+                            snorm_error(hier, out.astype(v.dtype), v, s))
+        counts = {k_: n for k_, n in _build.launch_counts().items() if n}
+        log(f"{shape} {label} reference check: cross-decode errors {errs} "
+            f"(card->card, card->CPU, CPU->card, CPU->CPU), sizes "
+            f"{len(b_gpu)} / {len(b_cpu)}, same bytes {b_gpu == b_cpu}, "
+            f"launches {counts}")
+        if not max(errs) <= tol:
+            raise AssertionError(f"{label}: cross-decode error {max(errs)} "
+                                 f"> {tol}")
+        if v.dtype == np.float32 and not counts.get("bp_decode_condense"):
+            raise AssertionError(f"{label}: the card decoded without K11")
 
 
 def snorm_error(hier, out, v_host, s) -> float:
@@ -1450,8 +1795,10 @@ def block_device_times(comp, vb, header, sections):
 def host_memory(label):
     """Log PyTorch's pinned host cache (bytes held now, at the peak and
     in all since the last reset, allocations and frees and the
-    microseconds they took) and the process's peak resident set."""
+    microseconds they took), the host tables' page-locked bytes and the
+    process's peak resident set."""
     import torch
+    from mgard_tpu_torch.ops import tridiag
     stats = {}
     if hasattr(torch.cuda, "host_memory_stats"):
         stats = {k: v for k, v in torch.cuda.host_memory_stats().items()
@@ -1459,8 +1806,47 @@ def host_memory(label):
                                   "host_alloc_time.total",
                                   "host_free_time.total"))}
     peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
-    log(f"{label}: pinned host cache {stats}; process peak RSS "
-        f"{peak_rss} bytes")
+    log(f"{label}: pinned host cache {stats}; host tables page-locked "
+        f"{tridiag.locked_bytes()} bytes; process peak RSS {peak_rss} "
+        f"bytes")
+
+
+def level_kernel_errs(hier, v, split=False) -> dict:
+    """K1, K5 and K6 against their plain versions (max|diff|, one entry a
+    level) at every level of ``hier`` that their gates admit, down the
+    decomposition of ``v`` (each level's coarse part plus its
+    correction), or with ``split`` down the split of a fine-order array
+    into its pyramid (each level's coarse nodes; K1 only); each level's
+    tables in a table scope of its own, as the transform copies them."""
+    from mgard_tpu_torch.ops import extract_kernels as xk, transform
+    from mgard_tpu_torch.ops import stencil_kernels as sk, tridiag
+
+    errs = {k: [] for k in ("extract_coarse_3d", "gpk_detail",
+                            "gpk_prolong_add")}
+    A = v
+    for l in range(hier.L, 0, -1):
+        with tridiag.table_scope():     # as a call copies them
+            if xk.extract_supported(hier, l, A):
+                errs["extract_coarse_3d"].append(max_abs_diff(
+                    xk.extract_coarse_3d(hier, A, l),
+                    xk.extract_coarse_3d_plain(
+                        A, xk._coarse_index(hier, l, A.device))))
+            Cl = transform._extract_old_all(hier, A, l)
+            if split:
+                A = Cl
+                continue
+            if sk.gpk_supported(hier, l, A):
+                det = sk.gpk_detail(hier, A, l)
+                errs["gpk_detail"].append(max_abs_diff(
+                    det, sk.gpk_detail_plain(hier, A, l)))
+                errs["gpk_prolong_add"].append(max_abs_diff(
+                    sk.gpk_prolong_add(hier, Cl, det, l),
+                    sk.gpk_prolong_add_plain(hier, Cl, det, l)))
+            else:
+                det = A - transform._prolong_all(hier, Cl, l)
+            A = Cl + transform._correction(hier, det, l)
+            del Cl, det
+    return errs
 
 
 def check_block_kernels(label, comp, v, tol, sections=None,
@@ -1473,36 +1859,12 @@ def check_block_kernels(label, comp, v, tol, sections=None,
     theirs, and K4 and its plain version decode the container's own
     words.  Returns the stream's word count."""
     import torch
-    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
-    from mgard_tpu_torch.ops import extract_kernels as xk, transform
-    from mgard_tpu_torch.ops import stencil_kernels as sk
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk, transform
     from mgard_tpu_torch.ops.quantize import inverse_quantum, \
         supremum_quantum
 
     hier, C = comp.hier, comp.chunk_groups
-    errs = {k: [] for k in ("extract_coarse_3d", "gpk_detail",
-                            "gpk_prolong_add")}
-    A = v
-    for l in range(hier.L, 0, -1):
-        if xk.extract_supported(hier, l, A):
-            errs["extract_coarse_3d"].append(max_abs_diff(
-                xk.extract_coarse_3d(hier, A, l),
-                xk.extract_coarse_3d_plain(A, xk._coarse_index(hier, l,
-                                                               A.device))))
-        Cl = transform._extract_old_all(hier, A, l)
-        if sk.gpk_supported(hier, l, A):
-            det = sk.gpk_detail(hier, A, l)
-            errs["gpk_detail"].append(max_abs_diff(
-                det, sk.gpk_detail_plain(hier, A, l)))
-            errs["gpk_prolong_add"].append(max_abs_diff(
-                sk.gpk_prolong_add(hier, Cl, det, l),
-                sk.gpk_prolong_add_plain(hier, Cl, det, l)))
-        else:
-            det = A - transform._prolong_all(hier, Cl, l)
-        A = Cl + transform._correction(hier, det, l)
-        del Cl, det
-    del A
-
+    errs = level_kernel_errs(hier, v)
     pyr = [p.reshape(-1).contiguous() for p in transform.decompose(hier, v)]
     inv_q = float(inverse_quantum(hier, tol))
     quantum = float(supremum_quantum(hier, tol))
@@ -1629,11 +1991,11 @@ def multiblock_default(v):
 
     # one block in flight (the serial order, which no setting gives: the
     # JAX package's rule keeps ndev + 1 = 2 on one card) against the
-    # default depth, in turns
+    # default depth, one turn each
     saved = api._pipeline_depth
     default = saved(1)
     try:
-        for depth in (1, default, default, 1):
+        for depth in (1, default):
             api._pipeline_depth = lambda ndev, d=depth: d
             t0 = time.perf_counter()
             b = mt.compress(v, TOL)
@@ -1758,6 +2120,10 @@ def multiblock_paths(v512):
 LONG_SERIES = 280953867
 LONG_FIELD = (64, 512, 8192)
 LONG_SQUARE = (8192, 8192)
+# (ratio, max error) of (a) and (b) as PERF.md records them for the
+# transform before the per-dim form's memory repair, which moves no bit.
+LONG_SERIES_BEFORE = (1.643232256644465, 6.220489740371704e-05)
+LONG_FIELD_BEFORE = (2.487497969357994, 2.4646520614624023e-05)
 # S1 is held bit for bit against its plain version (a Python loop over
 # the nodes) on solves of at most this many nodes.
 SOLVE_PLAIN_MAX = 1 << 16
@@ -1828,6 +2194,7 @@ class SolveProbe:
     def __enter__(self):
         import torch
         from mgard_tpu_torch.ops import transform, tridiag
+        from mgard_tpu_torch.ops import transform_singledim as sd
         self.saved = transform.mass_solve
 
         def probe(b, offdiag, divisors, axis):
@@ -1847,16 +2214,19 @@ class SolveProbe:
                     self.checked.append((n, axis, "bits",
                                          bits_equal(x, plain)))
                 else:
-                    self.checked.append((n, axis, "residual",
-                                         solve_residual(b, x, lev, axis)))
+                    with tridiag.table_scope():
+                        self.checked.append((n, axis, "residual",
+                                             solve_residual(b, x, lev,
+                                                            axis)))
             return x
 
-        transform.mass_solve = probe
+        transform.mass_solve = sd.mass_solve = probe
         return self
 
     def __exit__(self, *exc):
         from mgard_tpu_torch.ops import transform
-        transform.mass_solve = self.saved
+        from mgard_tpu_torch.ops import transform_singledim as sd
+        transform.mass_solve = sd.mass_solve = self.saved
         return False
 
     def times(self):
@@ -1875,6 +2245,73 @@ class SolveProbe:
             raise AssertionError(f"{label}: S1 checks failed: {bad}")
 
 
+def table_costs(hier):
+    """What the top level's tables of the per-dim form cost each call, two
+    ways, host clock: copied from their host sides (the spacings and
+    ratios of the level, S1's three tables of the level below), as the
+    port does, and built on the card from the level's coordinates and the
+    divisors of the level below, which are the same bits (timed here
+    only, to choose between them)."""
+    import torch
+    from mgard_tpu_torch.ops import transform, tridiag
+
+    l = hier.L
+    lev, clev = hier.dims[0][l], hier.dims[0][l - 1]
+    like = torch.empty(1, device="cuda")
+    f = 2 * lev.front_nc - 1 if lev.front_nc else lev.n
+
+    def copied():
+        with tridiag.table_scope():
+            got = (tridiag.along_axis(lev.h, like, 0),
+                   tridiag.along_axis(lev.new_ratio, like, 0),
+                   *tridiag._device_tables(clev.offdiag, clev.divisors,
+                                           torch.float32, like.device))
+            torch.cuda.synchronize()
+            return [t.clone() for t in got]
+
+    def built():
+        x = torch.from_numpy(lev.x).cuda()
+        h = x[1:] - x[:-1]
+        xl, xm, xr = x[0:f - 2:2], x[1:f - 1:2], x[2:f:2]
+        ratio = ((xm - xl) / (xr - xl)).float()
+        xc = transform.extract_old(x, lev, 0)
+        off = ((xc[1:] - xc[:-1]) / 6).float()
+        div = torch.from_numpy(clev.divisors).cuda().float()
+        got = (h.float(), ratio, off / div[:-1], off, div)
+        torch.cuda.synchronize()
+        return got
+
+    times = {}
+    for label, fn in (("copied", copied), ("built", built)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        times.setdefault(label, []).append(time.perf_counter() - t0)
+        times[label + " tables"] = got
+    same = all(bits_equal(a, b) for a, b in zip(times.pop("copied tables"),
+                                                 times.pop("built tables")))
+    nbytes = sum(t.numel() * t.element_size() for t in got)
+    log(f"top level's tables ({lev.n} nodes, {nbytes} bytes on the card): "
+        f"copied from the host {times['copied']} s, built on the card "
+        f"{times['built']} s (host clock); the same bits: {same}")
+    if not same:
+        raise AssertionError("tables built on the card differ")
+
+
+def unmoved(label, ratio, err, before, kept):
+    """After a round trip of (a) or (b): no table left on the card by it
+    (``kept``: the bytes of tables before it, those of earlier checks'
+    own calls), and the ratio and max error those of the transform before
+    its memory repair (the repair moves no bit)."""
+    tables = device_tables_bytes() - kept
+    log(f"{label}: tables the round trip left on the card {tables} "
+        f"bytes; ratio {ratio!r} and max error {err!r} against "
+        f"{before[0]!r} and {before[1]!r} before the repair")
+    if tables or (ratio, err) != before:
+        raise AssertionError(f"{label}: {tables} bytes of tables kept, or "
+                             "the ratio or error moved")
+
+
 def expect_launches(label, counts, want):
     """Raise unless each kernel named in ``want`` launched that often."""
     got = {k: counts[k] for k in want}
@@ -1884,46 +2321,96 @@ def expect_launches(label, counts, want):
 
 
 def device_tables_bytes() -> int:
-    """Bytes of the hierarchy tables that the operators keep on the card
-    (``tridiag.cached_tensor`` and S1's coefficients), held as long as
-    their hierarchy is cached."""
+    """Bytes of the tables that the operators hold on the card
+    (``tridiag.cached_tensor`` and S1's coefficients): those of the open
+    table scopes (``tridiag.table_scope``: one for each encode and
+    decode, one for each level inside it); no table outlives its
+    scope."""
+    import torch
     from mgard_tpu_torch.ops import tridiag
     total = 0
-    for hit in tridiag._TENSORS.values():
-        for t in hit if isinstance(hit, tuple) else (hit,):
-            if t.device.type == "cuda":
-                total += t.numel() * t.element_size()
+    for held in tridiag._SCOPES:
+        for hit in held.values():
+            for t in hit if isinstance(hit, tuple) else (hit,):
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    total += t.numel() * t.element_size()
     return total
+
+
+class TableProbe:
+    """The most bytes of tables the card held at once while the probe was
+    open (:func:`device_tables_bytes` after each table is made)."""
+
+    def __enter__(self):
+        from mgard_tpu_torch.ops import tridiag
+        self.saved, self.most = tridiag._kept, device_tables_bytes()
+
+        def kept(arr, key, build):
+            hit = self.saved(arr, key, build)
+            self.most = max(self.most, device_tables_bytes())
+            return hit
+
+        tridiag._kept = kept
+        return self
+
+    def __exit__(self, *exc):
+        from mgard_tpu_torch.ops import tridiag
+        tridiag._kept = self.saved
+        return False
+
+
+def encode_peak(label, comp, v, bound, check=True):
+    """The encode's peak device memory over the input's bytes (the input
+    counted, as in the planner's estimate), the most bytes of tables
+    held within it, and the tables it left on the card, which must be
+    none; with ``check`` the peak must be within the planner's factor
+    for this shape (``api.footprint_per_byte``), else a peak over it is
+    logged.  Returns the peak's factor."""
+    import torch
+    from mgard_tpu_torch import api
+
+    nbytes = v.numel() * v.element_size()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    kept = device_tables_bytes()    # those of earlier checks' own calls
+    torch.cuda.reset_peak_memory_stats()
+    with TableProbe() as tables:
+        comp.encode_device(v, bound)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + nbytes
+    after = device_tables_bytes() - kept
+    planned = api.footprint_per_byte(tuple(v.shape), comp.dtype,
+                                     comp.config)
+    log(f"{label}: encode peak {peak} bytes = {peak / nbytes:.4f}x the "
+        f"input's {nbytes} bytes, tables within it at most "
+        f"{tables.most - kept} bytes = {(tables.most - kept) / nbytes:.4f}x; "
+        f"tables it "
+        f"left on the card {after} bytes; the planner counts "
+        f"{planned:.4f}x")
+    if after:
+        raise AssertionError(f"{label}: {after} bytes of tables stay on "
+                             "the card after the encode")
+    if not peak <= planned * nbytes:
+        if check:
+            raise AssertionError(f"{label}: the encode's peak "
+                                 f"{peak / nbytes}x exceeds the planner's "
+                                 f"{planned}x")
+        log(f"{label}: the encode's peak exceeds the planner's factor")
+    return peak / nbytes
 
 
 def long_device_times(label, comp, v, header, sections):
     """Device encode and decode by CUDA events (one warm-up each), and
     S1's share of each: its calls timed inside one more encode and
-    decode.  Also the encode's peak device memory (its input counted, as
-    in the planner's estimate) and the hierarchy tables that the encode
-    leaves on the card, each over the input's bytes."""
+    decode; the encode's peak memory (:func:`encode_peak`)."""
     import torch
     import mgard_tpu_torch as mt
 
     bound = header.tolerance
     nbytes = v.numel() * v.element_size()
-    comp.encode_device(v, bound)              # the tables on the card
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    comp.encode_device(v, bound)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - before + nbytes
-    tables = device_tables_bytes()
-    log(f"{label}: encode peak {peak} bytes = {peak / nbytes:.4f}x the "
-        f"input's {nbytes} bytes, beside the hierarchy tables kept on the "
-        f"card, {tables} bytes = {tables / nbytes:.4f}x: "
-        f"{(peak + tables) / nbytes:.4f}x in all (planner's estimate "
-        f"{FOOTPRINT_PER_BYTE:.4f}x)")
-    if not peak + tables <= FOOTPRINT_PER_BYTE * nbytes:
-        log(f"{label}: the encode's memory exceeds the planner's estimate")
+    encode_peak(label, comp, v, bound)      # the encode's warm-up
     exps, words = comp.stream_tensors(header, sections)
-    enc_ms = cuda_ms(lambda: comp.encode_device(v, bound), 1)
+    enc_ms = cuda_ms(lambda: comp.encode_device(v, bound), 1, warm=False)
     dec_ms = cuda_ms(lambda: comp.decode_device(
         exps, words, bound, mt.Lossless(header.lossless)), 1)
     with SolveProbe(comp.hier) as enc_probe:
@@ -1969,11 +2456,13 @@ def s1_record(b, lev, axis):
     log(f"S1 library on {tuple(b.shape)} axis {axis}: tensordot with the "
         f"dense inverse {lib_ms:.4f} ms (max|diff| to S1 {lib_err:.3e})")
     nbytes = 2 * b.numel() * b.element_size()
+    with tridiag.table_scope():     # its tables copied once
+        ms = cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
+                                                axis), 5)
     results = []
     record(results, "S1 " + SOLVE_NAME, "mgard_tpu_torch/csrc/tridiag.cu",
            "mgard_tpu/ops/tridiag.py:69 (lax.scan, no Pallas kernel)", err,
-           cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
-                                              axis), 5),
+           ms,
            cuda_ms(lambda: tridiag.mass_solve_plain(
                b, lev.offdiag, lev.divisors, axis), 1),
            nbytes, 0, library_ms=lib_ms)
@@ -2028,6 +2517,7 @@ def long_series():
     from mgard_tpu_torch.ops import bp_kernels as bk, tridiag
 
     shape = (LONG_SERIES,)
+    gc.collect()
     v = smooth_field_card(shape)
     v_host = v.cpu().numpy()
     t0 = time.perf_counter()
@@ -2044,12 +2534,16 @@ def long_series():
     if nblocks != 1 or hier.L + 1 > bk.SEGMENT_CAPACITY:
         raise AssertionError("the series must be one domain of at most "
                              f"{bk.SEGMENT_CAPACITY} segments")
+    kept = device_tables_bytes()
     buf, header, sections, out, counts, tc, td = round_trip(
         "long series", v_host, TOL)
     err = card_max_err(v_host, out)
     log(f"long series: max|v - out| = {err!r} (tolerance {TOL}); API "
         f"wall {tc + td:.3f} s")
+    host_memory("long series round trip")
     del out
+    unmoved("long series", v_host.nbytes / len(buf), err, LONG_SERIES_BEFORE,
+            kept)
     expect_launches("long series", counts, {
         SOLVE_NAME: 2 * len(pairs), "bp_quant_max": 1,
         "gpk_detail": 0, "gpk_prolong_add": 0, "extract_coarse_3d": 0})
@@ -2065,14 +2559,16 @@ def long_series():
     lev = next(lv for lv in hier.dims[0] if lv.n == n_top)
     b = torch.randn(n_top, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
-    top_ms = cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
-                                                0), 3)
+    with tridiag.table_scope():     # its tables copied once
+        top_ms = cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag,
+                                                    lev.divisors, 0), 3)
     log(f"long series: S1 alone on {n_top} nodes: {top_ms:.3f} ms, bound "
         f"{bound_ms(8 * n_top, 0)[0]:.4f} ms (bytes)")
     del b
     with SolveProbe(hier, check=True) as probe:
         comp.encode_device(v, header.tolerance)
     probe.verdict("long series")
+    table_costs(hier)
     check_block_kernels("long series kernels", api.compressor_for(header), v,
                         header.tolerance, sections, stencil=False)
     del v
@@ -2090,6 +2586,7 @@ def long_field():
     from mgard_tpu_torch.ops import extract_kernels as xk, transform
     from mgard_tpu_torch.ops import tridiag
 
+    gc.collect()
     v = smooth_field_card(LONG_FIELD, seed=SEED + 1)
     v_host = v.cpu().numpy()
     hier = mt.Hierarchy(LONG_FIELD)
@@ -2099,11 +2596,15 @@ def long_field():
              for l in range(1, hier.L + 1))
     log(f"long field {LONG_FIELD}: L = {hier.L}, per-dim (level, dim) "
         f"pairs {pairs}, K1 levels {k1}")
+    kept = device_tables_bytes()
     buf, header, sections, out, counts, tc, td = round_trip(
         "long field", v_host, TOL)
     err = card_max_err(v_host, out)
     log(f"long field: max|v - out| = {err!r} (tolerance {TOL})")
+    host_memory("long field round trip")
     del out
+    unmoved("long field", v_host.nbytes / len(buf), err, LONG_FIELD_BEFORE,
+            kept)
     expect_launches("long field", counts, {
         SOLVE_NAME: 2 * len(pairs), "gpk_detail": 1, "gpk_prolong_add": 1,
         "bp_quant_max": 1, "extract_coarse_3d": k1})
@@ -2438,6 +2939,10 @@ def main() -> int:
     with Phase("s-norm"):
         snorm_paths(v_host, buf, counts)
 
+    with Phase("layouts"):
+        layout_paths(v_host, flat_counts)
+        check_singledim_s1(v_host)
+
     with Phase("multi-block"):
         multiblock_paths(v_host)
 
@@ -2453,6 +2958,7 @@ def main() -> int:
         flat_reference_check()
         snorm_reference_check((65, 65, 65), seed=4, s=0.0)
         snorm_reference_check((33, 65, 65), seed=5, s=1.0, uniform=False)
+        layout_reference_check()
 
     # launches: each kernel's count on the path that runs it; K16/K17 run
     # on no path, so theirs is the main path's 0

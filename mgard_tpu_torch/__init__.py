@@ -19,12 +19,14 @@ torch.set_float32_matmul_precision("highest")
 
 from .api import (compress, decompress, estimate_memory_footprint,  # noqa: E402
                   release_cache)
-from .config import Config, ErrorMode, Layout, Lossless  # noqa: E402
+from .config import (Config, Decomposition, ErrorMode, Layout,  # noqa: E402
+                     Lossless)
 from .hierarchy import Hierarchy  # noqa: E402
 from .models.compressor import Compressor, get_compressor  # noqa: E402
 
 __all__ = ["compress", "decompress", "release_cache",
            "estimate_memory_footprint", "Compressor", "get_compressor",
-           "Hierarchy", "Config", "ErrorMode", "Layout", "Lossless"]
+           "Hierarchy", "Config", "Decomposition", "ErrorMode", "Layout",
+           "Lossless"]
 
 __version__ = "0.1.0"

@@ -33,8 +33,8 @@ from .models.compressor import (Compressor, _cached_compressor,
 from .parallel.domain import block_grid_blocks, local_abs_tol
 
 __all__ = ["compress", "decompress", "release_cache", "resolve_device",
-           "block_devices", "estimate_memory_footprint", "adjust_shape",
-           "plan_blocks"]
+           "block_devices", "estimate_memory_footprint", "footprint_per_byte",
+           "adjust_shape", "plan_blocks"]
 
 # Blocks in flight in the multi-block pipeline (``mgard_tpu/api.py:181``):
 # block i + 1's device work is queued before block i is read back.
@@ -107,14 +107,64 @@ def release_cache() -> None:
         _free_pinned()
 
 
-def estimate_memory_footprint(shape, dtype=np.float32) -> int:
+# The JAX package's device bytes a compress needs, over the input's:
+# input, pyramid, stream capacity, temporaries (3.9x, with a 1.15 safety
+# factor).
+FOOTPRINT_PER_BYTE = 3.9 * 1.15
+# The port's encode peaks over the input's bytes where they pass that
+# estimate, each measured on an H100 by chip_smoke.py (PERF.md section
+# 6) on one shape and applied to every shape of its kind: a shape with a
+# level in the per-dim form (a dim over MGARD_TPU_MATMUL_MAX_N nodes, or
+# MGARD_TPU_SOLVER=scan), at the peak of the 1-D series of 280,953,867
+# values, the highest of the long-dim shapes measured (an upper bound
+# for the others); float64 data (512^3, the wide codec); and float32 at
+# 512^3 on each flat stream: the SINGLEDIM and HYBRID decompositions
+# (HYBRID at the higher of its peaks with one and two local levels) and
+# the PYRAMID, FINE and LEVEL_BLOCKS layouts.  The planner counts the
+# highest that applies with the JAX package's 1.15 margin.
+PEAK_PER_BYTE = {"per_dim": 10.1215, "wide": 9.1495, "singledim": 5.5039,
+                 "hybrid": 7.5251, "pyramid": 6.7386, "fine": 5.2500,
+                 "level_blocks": 5.5327}
+_LAYOUT_PEAK = {Layout.PYRAMID: "pyramid", Layout.FINE: "fine",
+                Layout.LEVEL_BLOCKS: "level_blocks"}
+
+
+def footprint_per_byte(shape, dtype=np.float32,
+                       config: Optional[Config] = None) -> float:
+    """The planner's device bytes per input byte for this shape, dtype
+    and configuration: the JAX package's factor for the segmented float32
+    stream of the matmul-form transform, else 1.15 times the highest
+    measured peak (:data:`PEAK_PER_BYTE`) that applies."""
+    from .ops import transform
+    cfg = config or Config()
+    peaks = []
+    if transform._SOLVER != "matmul" \
+            or any(int(n) > transform._MATMUL_MAX_N for n in shape):
+        peaks.append(PEAK_PER_BYTE["per_dim"])
+    if np.dtype(dtype) == np.float64:
+        peaks.append(PEAK_PER_BYTE["wide"])
+    if cfg.decomposition == Decomposition.SINGLEDIM:
+        peaks.append(PEAK_PER_BYTE["singledim"])
+    elif cfg.decomposition == Decomposition.HYBRID:
+        peaks.append(PEAK_PER_BYTE["hybrid"])
+    elif cfg.layout in _LAYOUT_PEAK:
+        peaks.append(PEAK_PER_BYTE[_LAYOUT_PEAK[cfg.layout]])
+    return 1.15 * max(peaks) if peaks else FOOTPRINT_PER_BYTE
+
+
+def estimate_memory_footprint(shape, dtype=np.float32,
+                              config: Optional[Config] = None) -> int:
     """Device bytes needed to compress an array of this shape: the JAX
-    package's estimate (input, pyramid, stream capacity, temporaries;
-    3.9x the input bytes with a 1.15 safety factor), kept so that both
-    packages make the same domain-decomposition decision."""
+    package's estimate (:data:`FOOTPRINT_PER_BYTE` of the input's
+    bytes), so that both packages make the same domain-decomposition
+    decision, except where the port's measured peak is higher
+    (:func:`footprint_per_byte`)."""
     n = int(np.prod([int(s) for s in shape]))
     item = np.dtype(dtype).itemsize
-    return int(n * item * 3.9 * 1.15) + (32 << 20)
+    factor = footprint_per_byte(shape, dtype, config)
+    if factor == FOOTPRINT_PER_BYTE:    # in the JAX package's order
+        return int(n * item * 3.9 * 1.15) + (32 << 20)
+    return int(n * item * factor) + (32 << 20)
 
 
 def _device_memory_budget(device: torch.device) -> int:
@@ -138,7 +188,7 @@ def plan_blocks(shape, dtype, cfg: Config, device=None) -> int:
     nbytes = int(np.prod([int(x) for x in shape])) * np.dtype(dtype).itemsize
     budget = cfg.max_memory_footprint \
         or _device_memory_budget(resolve_device(device))
-    est = estimate_memory_footprint(shape, dtype)
+    est = estimate_memory_footprint(shape, dtype, cfg)
     nb = 1
     if est > budget:
         nb = max(2, int(-(-est // budget)))
@@ -355,14 +405,27 @@ def _encode_blocks(arr, dtype, tolerance, s, emode, coordinates, cfg,
             np.asarray(c) for c in coordinates],
         error_mode=int(emode), s=float(s), tolerance=block_tol, norm=norm,
         lossless=int(probe.lossless), n_levels=0, section_sizes=(),
-        dd_nblocks=nblocks, decomposition=int(cfg.decomposition),
+        dd_nblocks=nblocks, decomposition=_wire_decomposition(cfg),
         layout=int(cfg.layout), **dd_fields)
     return fmt.write_container(header, sections)
 
 
+def _wire_decomposition(cfg: Config) -> int:
+    """The header's decomposition byte (``mgard_tpu/api.py:290``):
+    HYBRID is written as 1 + its local level count."""
+    if cfg.decomposition == Decomposition.HYBRID:
+        return 1 + max(1, int(cfg.num_local_levels))
+    return int(cfg.decomposition)
+
+
 def _config_from_header(header: fmt.Header) -> Config:
+    """The configuration a container's decomposition and layout bytes
+    name (``mgard_tpu/api.py:540``): 2 and above are HYBRID with the
+    byte less one local levels."""
     if header.decomposition >= 2:
-        raise _not_ported("the hybrid decomposition", "queue A, item 4")
+        return Config(decomposition=Decomposition.HYBRID,
+                      num_local_levels=header.decomposition - 1,
+                      layout=Layout(header.layout))
     return Config(decomposition=Decomposition(header.decomposition),
                   layout=Layout(header.layout))
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -418,3 +419,62 @@ class Hierarchy:
     def level_indices(self, l: int, d: int) -> np.ndarray:
         """Fine-grid indices of level-``l`` nodes in dim ``d``."""
         return self._fine_indices[d][l]
+
+    # ------------------------------------------------------------------
+    @functools.cached_property
+    def dates_of_birth(self):
+        """Per dim, the level that introduced each finest-grid node
+        (``mgard_tpu/hierarchy.py:276``).  Built at first use: the
+        transform never reads it, and on a 10^8-node dim it is a table
+        of that many int64."""
+        out = []
+        for d in range(self.ndim):
+            dob = np.zeros(self.shape[d], dtype=np.int64)
+            for l in range(self.L, -1, -1):
+                dob[self._fine_indices[d][l]] = l
+            out.append(dob)
+        return out
+
+    def date_of_birth_grid(self) -> np.ndarray:
+        """N-D int array: the level that introduced each finest-grid
+        node."""
+        grids = np.meshgrid(*self.dates_of_birth, indexing="ij")
+        return functools.reduce(np.maximum, grids)
+
+    def shuffle_permutation(self) -> np.ndarray:
+        """Permutation p with ``shuffled.flat[i] = v.flat[p[i]]``: the
+        reference's shuffled order (level-major, raster order within a
+        level; ``shuffle.tpp:7-22``)."""
+        dob = self.date_of_birth_grid().ravel()
+        return np.argsort(dob, kind="stable").astype(np.int64)
+
+    def level_counts(self) -> np.ndarray:
+        """Number of nodes introduced at each level, shape (L+1,)."""
+        return np.bincount(self.date_of_birth_grid().ravel(),
+                           minlength=self.L + 1)
+
+    # ------------------------------------------------------------------
+    def regions(self, l: int):
+        """The dense coefficient blocks that level ``l >= 1`` introduces
+        (``mgard_tpu/hierarchy.py:338``): ``(region_id, block_shape,
+        per_dim_selector)`` with ``per_dim_selector[d]`` ``("new",
+        DimLevel)`` where the region takes the level's new nodes and
+        ``("old", DimLevel)`` where it takes parent nodes.  Bit ``d`` of
+        ``region_id`` (1 .. 2^D - 1) is set iff dim ``d`` is "new"; flat
+        dims are always "old"; regions with an empty extent are
+        skipped."""
+        for r in range(1, 1 << self.ndim):
+            sel, bshape = [], []
+            for d in range(self.ndim):
+                lev = self.dims[d][l]
+                if (r >> d) & 1:
+                    if lev.new_pos is None or len(lev.new_pos) == 0:
+                        break
+                    sel.append(("new", lev))
+                    bshape.append(len(lev.new_pos))
+                else:
+                    sel.append(("old", lev))
+                    bshape.append(len(lev.coarse_pos)
+                                  if lev.coarse_pos is not None else lev.n)
+            else:
+                yield r, tuple(bshape), tuple(sel)

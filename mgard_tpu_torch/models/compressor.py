@@ -12,11 +12,18 @@ Two routes, chosen as the JAX package chooses them:
   scaled by their per-node inverse quanta first (``scale_pyramid``) and
   the kernels multiply by 1.0; the decode returns int32 levels (K11 per
   level), which ``dequantize_pyramid`` scales back;
-* **flat** (everything else the port has): ``_quantized_flat`` scales,
-  concatenates and rounds the pyramid into one integer stream, which
-  one of three codecs encodes: the chunked ``bitplane.encode`` (K12,
-  K11), the per-group ``encode_pergroup`` (the default under 2^22
-  values) or, for float64 data, the wide ``encode64``.
+* **flat** (everything else the port has): ``_quantized_flat`` scales
+  and rounds the coefficients into one integer stream, which one of
+  three codecs encodes: the chunked ``bitplane.encode`` (K12, K11), the
+  per-group ``encode_pergroup`` (the default under 2^22 values) or, for
+  float64 data, the wide ``encode64``.  The stream is laid out as the
+  configuration says: the MULTIDIM pyramid's levels one after the other
+  (PYRAMID), in fine-grid order (FINE, ``transform.pyramid_to_fine``)
+  or as (level, region) blocks (LEVEL_BLOCKS,
+  ``transform.pyramid_to_blocks``); the SINGLEDIM decomposition's
+  (level, dim) slabs (``ops/transform_singledim.py``); or the HYBRID
+  decomposition's global part in fine order and then its block-local
+  detail slabs (``ops/transform_hybrid.py``).
 
 Device work is :meth:`Compressor.encode_device` and
 :meth:`Compressor.decode_device`; host code reads back the variable-length
@@ -31,10 +38,14 @@ array it returns.  A round trip waits on the device three times: the
 status, word count and exponents, the stream's words, and the decoded
 array.
 
-Branches of the JAX package that the port does not have yet (the FINE
-and LEVEL_BLOCKS layouts, the SINGLEDIM and HYBRID
-decompositions, the host losslesses, the zstd/LZ4 second stages) raise
-``NotImplementedError`` naming their ROADMAP entry.
+Branches of the JAX package that the port does not have yet (the host
+losslesses, the zstd/LZ4 second stages) raise ``NotImplementedError``
+naming their ROADMAP entry.
+
+Tables that the operators copy to the card (``tridiag.cached_tensor``,
+S1's coefficients) live for one encode or decode
+(``tridiag.table_scope``), so that none stays on the card after the
+call.
 """
 
 from __future__ import annotations
@@ -50,8 +61,13 @@ from ..config import Config, Decomposition, ErrorMode, Layout, Lossless
 from ..hierarchy import Hierarchy
 from ..io import format as fmt
 from ..ops import bitplane, transform
-from ..ops.quantize import (TORCH_DTYPE, dequantize_pyramid, inverse_quantum,
-                            round_quantize, scale_pyramid, supremum_quantum)
+from ..ops import transform_hybrid as th
+from ..ops import transform_singledim as sd
+from ..ops.quantize import (TORCH_DTYPE, dequantize_blocks,
+                            dequantize_pyramid, inverse_quantum,
+                            round_quantize, scale_blocks, scale_pyramid,
+                            supremum_quantum)
+from ..ops.tridiag import along_axis, table_scope
 
 _F64 = np.dtype(np.float64)
 # Small domains get per-group exponents (compressor.py:79-86) ...
@@ -169,10 +185,28 @@ class Compressor:
             and not wide)
         self._seg_sizes = tuple(
             int(np.prod(hier.shapes[l])) for l in range(hier.L + 1))
-        # Values in the flat stream: the pyramid's for the PYRAMID layouts.
+        # Values in the flat stream: the pyramid's for the MULTIDIM
+        # PYRAMID layouts, the hybrid stream's, else one a node.
+        decomposition = self.config.decomposition
         self._nstream = sum(self._seg_sizes) \
-            if self.config.layout in (Layout.PYRAMID, Layout.PYRAMID_SEG) \
+            if decomposition == Decomposition.MULTIDIM \
+            and self.config.layout in (Layout.PYRAMID, Layout.PYRAMID_SEG) \
             else hier.ndof()
+        # HYBRID: block-local levels on a packed coarse grid, whose
+        # hierarchy has explicit coordinates ({0, 2, 4, 6, 7} of each
+        # block are not evenly spaced) (compressor.py:120-137)
+        self._hybrid_k = 0
+        if decomposition == Decomposition.HYBRID:
+            k = self._hybrid_k = max(1, int(self.config.num_local_levels))
+            coords = hier.coordinates
+            self._hybrid_hc = Hierarchy(
+                th.coarse_shape(hier.shape, k),
+                coordinates=th.hybrid_coords(hier.shape, k, coords)[-1])
+            self._hybrid_ops = None if hier.uniform \
+                else th.hybrid_operators(hier.shape, k, coords)
+            self._hybrid_vols = th.hybrid_volume_weights(hier.shape, k,
+                                                         coords)
+            self._nstream = th.hybrid_stream_size(hier.shape, k)
 
     def _codec(self, lossless: Lossless) -> str:
         """Which stream a lossless id means here (the order of
@@ -185,12 +219,6 @@ class Compressor:
         return "grouped" if lossless.grouped else "chunked"
 
     def _check_ported(self, lossless: Lossless) -> None:
-        if self.config.decomposition != Decomposition.MULTIDIM:
-            raise _not_ported(f"the {self.config.decomposition.name} "
-                              "decomposition", "queue A, item 4")
-        if self.config.layout not in (Layout.PYRAMID, Layout.PYRAMID_SEG):
-            raise _not_ported(f"the {self.config.layout.name} layout",
-                              "queue A, item 3")
         if lossless in _HOST_LOSSLESS:
             raise _not_ported(f"the host lossless {lossless.name}",
                               "queue A, item 5")
@@ -201,19 +229,83 @@ class Compressor:
     # ------------------------------------------------------------------
     # the flat stream
     # ------------------------------------------------------------------
+    def _hybrid_quantum(self, tol: float) -> float:
+        """The HYBRID L-infinity quantum, with the total (local + global)
+        level count in the denominator (``compressor.py:151``), in float64
+        as the JAX package forms it from its float64 tolerance (the
+        division by the constant folded into a multiplication by its
+        reciprocal, as ``flat_quantum`` folds it)."""
+        d = self.hier.effective_ndim
+        L_total = self._hybrid_hc.L + self._hybrid_k
+        return np.float64(2.0 * float(tol)) \
+            * (1.0 / ((L_total + 1) * (1 + 3.0 ** d)))
+
+    def _hybrid_scale(self, pyr, details, tol: float, inverse: bool):
+        """(De)scale the hybrid stream (``compressor.py:159``).  L-infinity:
+        one quantum, its inverse (or itself) taken in float64 and cast to
+        the data's dtype.  Finite s: the levelwise quanta of the coarse
+        hierarchy at a tolerance scaled to the whole stream's count, and
+        on the detail slab of local level i the scalar of total level
+        ``Lc + k - i`` and the slab's per-dim volume vectors."""
+        hc, k = self._hybrid_hc, self._hybrid_k
+        cast = self.dtype.type       # pyr and details are in this dtype
+        device = pyr[0].device
+        if math.isinf(self.s):
+            q = self._hybrid_quantum(tol)
+            f = torch.tensor(cast(q if inverse else 1.0 / q), device=device)
+            return [p * f for p in pyr], [x * f for x in details]
+        n_total = float(self._nstream)
+        tol_eff = float(tol) * math.sqrt(hc.ndof() / n_total)
+        if inverse:
+            pyr = dequantize_pyramid(hc, pyr, self.s, tol_eff, self.dtype)
+        else:
+            pyr = scale_pyramid(hc, pyr, self.s, tol_eff)
+        out = []
+        for i, x in enumerate(details):
+            base = (2.0 ** (self.s * (hc.L + k - i))) * math.sqrt(n_total) \
+                / (2.0 * float(tol))
+            factor = torch.tensor(cast(base), device=device)
+            x = x / factor if inverse else x * factor
+            for dim, w in enumerate(self._hybrid_vols[i]):
+                wt = along_axis(w, x, dim)
+                x = x / wt if inverse else x * wt
+            out.append(x)
+        return pyr, out
+
+    def _scaled_stream(self, v: torch.Tensor, tol: float) -> torch.Tensor:
+        """Decompose and scale into the float stream of the configuration
+        (``compressor.py:202-233``), not rounded."""
+        hier, cfg = self.hier, self.config
+        if cfg.decomposition == Decomposition.HYBRID:
+            pyr, details = th.decompose_hybrid(
+                self._hybrid_hc, v, self._hybrid_k, ops=self._hybrid_ops)
+            pyr, details = self._hybrid_scale(pyr, details, tol, False)
+            return th.flatten_hybrid(self._hybrid_hc, pyr, details)
+        if cfg.decomposition == Decomposition.SINGLEDIM:
+            coarse, slabs = sd.decompose_sd(hier, v)
+            coarse, slabs = sd.scale_slabs(hier, coarse, slabs, self.s, tol)
+            return sd.flatten_slabs(hier, coarse, slabs)
+        pyr = transform.decompose(hier, v)
+        if cfg.layout == Layout.LEVEL_BLOCKS:
+            blocks = transform.pyramid_to_blocks(hier, pyr)
+            del pyr
+            return torch.cat([b.reshape(-1) for b in
+                              scale_blocks(hier, blocks, self.s, tol)])
+        spyr = scale_pyramid(hier, pyr, self.s, tol)
+        del pyr
+        if cfg.layout == Layout.FINE:
+            return transform.pyramid_to_fine(hier, spyr).reshape(-1)
+        return torch.cat([p.reshape(-1) for p in spyr])
+
     def _quantized_flat(self, v: torch.Tensor, tol: float):
         """Decompose + quantize -> (flat int32 stream, or int64 for
-        float64 data; status int32 scalar) (``compressor.py:197``).
+        float64 data; status int32 scalar) (``compressor.py:202``).
 
         The status guards read the float stream before the integer cast
         (which would saturate or wrap silently): 1 when max|scaled| is not
         below the ceiling (2^31 - 1, or 2^62 for float64; a NaN fails the
         test too), 2 when the input holds a NaN or an Inf."""
-        pyr = transform.decompose(self.hier, v)
-        spyr = scale_pyramid(self.hier, pyr, self.s, tol)
-        del pyr
-        scaledf = torch.cat([p.reshape(-1) for p in spyr])
-        del spyr
+        scaledf = self._scaled_stream(v, tol)
         wide = scaledf.dtype == torch.float64
         flat = round_quantize(scaledf, torch.int64 if wide else torch.int32)
         limit = 2.0 ** 62 if wide else 2.0 ** 31 - 1
@@ -225,13 +317,42 @@ class Compressor:
 
     def _flat_to_array(self, flat: torch.Tensor, tol: float) -> torch.Tensor:
         """Dequantize + recompose a flat integer stream (inverse of
-        :meth:`_quantized_flat`)."""
-        qpyr, off = [], 0
-        for shp, size in zip(self.hier.shapes, self._seg_sizes):
-            qpyr.append(flat[off:off + size].reshape(shp))
-            off += size
-        pyr = dequantize_pyramid(self.hier, qpyr, self.s, tol, self.dtype)
-        return transform.recompose(self.hier, pyr)
+        :meth:`_quantized_flat`; ``compressor.py:258``)."""
+        hier, cfg = self.hier, self.config
+        if cfg.decomposition == Decomposition.HYBRID:
+            # the global part is split in fine order after the cast to
+            # the data's dtype, as the JAX package splits it
+            pyr, details = th.unflatten_hybrid(
+                self._hybrid_hc, flat.to(TORCH_DTYPE[self.dtype]),
+                hier.shape, self._hybrid_k)
+            pyr, details = self._hybrid_scale(pyr, details, tol, True)
+            return th.recompose_hybrid(self._hybrid_hc, pyr, details,
+                                       hier.shape, ops=self._hybrid_ops)
+        if cfg.decomposition == Decomposition.SINGLEDIM:
+            coarse, slabs = sd.unflatten_slabs(hier, flat)
+            coarse, slabs = sd.unscale_slabs(hier, coarse, slabs, self.s,
+                                             tol, self.dtype)
+            return sd.recompose_sd(hier, coarse, slabs)
+        if cfg.layout == Layout.FINE:
+            # the integer stream is split with slices (K1 is float32 only)
+            qpyr = transform.fine_to_pyramid(hier, flat.reshape(hier.shape))
+        elif cfg.layout == Layout.LEVEL_BLOCKS:
+            qblocks, off = [], 0
+            for (_, _, bshape, _) in transform.block_specs(hier):
+                size = math.prod(bshape)
+                qblocks.append(flat[off:off + size].reshape(bshape))
+                off += size
+            blocks = dequantize_blocks(hier, qblocks, self.s, tol,
+                                       self.dtype)
+            return transform.recompose(
+                hier, transform.blocks_to_pyramid(hier, blocks))
+        else:
+            qpyr, off = [], 0
+            for shp, size in zip(hier.shapes, self._seg_sizes):
+                qpyr.append(flat[off:off + size].reshape(shp))
+                off += size
+        pyr = dequantize_pyramid(hier, qpyr, self.s, tol, self.dtype)
+        return transform.recompose(hier, pyr)
 
     # ------------------------------------------------------------------
     # device work
@@ -240,6 +361,10 @@ class Compressor:
         """decompose + quantize + encode on the device: ``(exponents,
         words, count, status)`` tensors, not yet read back."""
         self._check_ported(self.lossless)
+        with table_scope():
+            return self._encode_device(v, abs_tol)
+
+    def _encode_device(self, v: torch.Tensor, abs_tol: float):
         codec = self._codec(self.lossless)
         C = self.chunk_groups
         if codec == "segmented":
@@ -265,6 +390,10 @@ class Compressor:
         the container's (default: this compressor's)."""
         lossless = self.lossless if lossless is None else lossless
         self._check_ported(lossless)
+        with table_scope():
+            return self._decode_device(exponents, words, abs_tol, lossless)
+
+    def _decode_device(self, exponents, words, abs_tol, lossless):
         codec = self._codec(lossless)
         C = self.chunk_groups
         if codec == "segmented":
@@ -369,7 +498,9 @@ class Compressor:
             coordinates=None if self.hier.uniform else self.hier.coordinates,
             error_mode=int(mode), s=self.s, tolerance=abs_tol, norm=norm,
             lossless=int(self.lossless), n_levels=self.hier.L,
-            section_sizes=(), decomposition=int(self.config.decomposition),
+            section_sizes=(),
+            decomposition=(1 + self._hybrid_k if self._hybrid_k
+                           else int(self.config.decomposition)),
             layout=int(self.config.layout))
         return fmt.write_container(header, sections)
 

@@ -21,6 +21,10 @@ to the data's dtype, and only then inverted in that dtype; dequantizing
 multiplies by the cast ``q``.  The two roundings can differ by an ulp of
 the quantum, far inside the bound's slack.
 
+The LEVEL_BLOCKS stream scales its (level, region) blocks the same way
+(``scale_blocks``/``dequantize_blocks``), each block with the weights of
+its own positions.
+
 **s-norm** (finite ``s``): the quantum of a level-``l`` node is ``2*tol /
 (2^(s*l) * sqrt(ndof * vol(node)))``, with ``vol`` the product over the
 non-flat dims of half the distance between the node's neighbours in
@@ -43,10 +47,12 @@ import numpy as np
 import torch
 
 from ..hierarchy import Hierarchy
+from .transform import block_specs
 from .tridiag import along_axis
 
 __all__ = ["supremum_quantum", "inverse_quantum", "round_quantize",
            "flat_quantum", "scale_pyramid", "dequantize_pyramid",
+           "scale_blocks", "quantize_blocks", "dequantize_blocks",
            "TORCH_DTYPE"]
 
 TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
@@ -132,3 +138,52 @@ def round_quantize(scaled: torch.Tensor, int_dtype=torch.int32
     int64 for float64 data (``quantize.py:103``)."""
     t = torch.trunc(0.5 + scaled.abs())
     return torch.where(scaled < 0, -t, t).to(int_dtype)
+
+
+def _block_inv_quantum_volume(hier: Hierarchy, l: int, pos):
+    """Per-dim ``sqrt(vol)`` vectors (float64) of one block: level
+    ``l``'s volumes at the block's positions (``quantize.py:47``)."""
+    return [np.ones(1) if hier.shape[d] == 1
+            else np.sqrt(hier.dims[d][l].volumes[np.asarray(pos[d])])
+            for d in range(hier.ndim)]
+
+
+def scale_blocks(hier: Hierarchy, blocks, s: float, tol: float):
+    """Each (level, region) block of :func:`transform.block_specs` times
+    its inverse quanta, not rounded (``quantize.py:157``)."""
+    if math.isinf(s):
+        return scale_pyramid(hier, blocks, s, tol)
+    out = []
+    for (l, _, _, pos), blk in zip(block_specs(hier), blocks):
+        scaled = blk * _scalar((2.0 ** (s * l)) * math.sqrt(hier.ndof())
+                               / (2.0 * float(tol)), blk)
+        for d, w in enumerate(_block_inv_quantum_volume(hier, l, pos)):
+            scaled = scaled * along_axis(w, blk, d)
+        out.append(scaled)
+    return out
+
+
+def quantize_blocks(hier: Hierarchy, blocks, s: float, tol: float,
+                    int_dtype=torch.int32):
+    """:func:`scale_blocks` rounded to ``int_dtype``
+    (``quantize.py:177``)."""
+    return [round_quantize(b, int_dtype)
+            for b in scale_blocks(hier, blocks, s, tol)]
+
+
+def dequantize_blocks(hier: Hierarchy, qblocks, s: float, tol: float,
+                      dtype):
+    """Inverse of :func:`quantize_blocks`, in ``dtype``
+    (``quantize.py:204``)."""
+    if math.isinf(s):
+        return dequantize_pyramid(hier, qblocks, s, tol, dtype)
+    tdt = TORCH_DTYPE[np.dtype(dtype)]
+    out = []
+    for (l, _, _, pos), blk in zip(block_specs(hier), qblocks):
+        c = blk.to(tdt)
+        c = c * _scalar((2.0 * float(tol))
+                        / ((2.0 ** (s * l)) * math.sqrt(hier.ndof())), c)
+        for d, w in enumerate(_block_inv_quantum_volume(hier, l, pos)):
+            c = c / along_axis(w, c, d)
+        out.append(c)
+    return out

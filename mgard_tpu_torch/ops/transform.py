@@ -45,6 +45,8 @@ take the same branch, so both run the same arithmetic.
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 from typing import List, Sequence
 
@@ -56,10 +58,12 @@ from . import extract_kernels as xk
 from . import lpk_kernels as lk
 from . import stencil_kernels as sk
 from .tridiag import (along_axis, cached_tensor, mass_apply, mass_solve,
-                      pad_axis)
+                      pad_fold, table_scope)
 
 __all__ = ["decompose", "recompose", "recompose_to_level", "prolong",
-           "restrict"]
+           "restrict", "extract_old", "block_specs", "pyramid_to_fine",
+           "fine_to_pyramid", "pyramid_to_blocks", "blocks_to_pyramid",
+           "flatten_pyramid", "unflatten_pyramid"]
 
 # The JAX package's switches, read at import as it reads them: a level
 # whose dims are all at most _MATMUL_MAX_N nodes takes the dense matrices
@@ -198,20 +202,28 @@ def _apply_matrix_chain(B: torch.Tensor, mats, dims) -> torch.Tensor:
     return B
 
 
-def extract_old(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
-    """Restrict a dense level array to the parent level's nodes along
-    ``axis``."""
-    if lev.coarse_pos is None:
-        return v
-    idx = cached_tensor(lev.coarse_pos, torch.int64, v.device)
-    return v.index_select(axis, idx)
-
-
 def _slice_axis(v: torch.Tensor, start: int, stop: int, step: int,
                 axis: int) -> torch.Tensor:
     idx = [slice(None)] * v.dim()
     idx[axis] = slice(start, stop, step)
     return v[tuple(idx)]
+
+
+def extract_old(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
+    """Restrict a dense level array to the parent level's nodes along
+    ``axis`` (``transform.py:59``): a strided view on a stride-2 level,
+    the strided front and the tail on a front-interleaved one, a gather
+    of ``coarse_pos`` on any other."""
+    if lev.coarse_pos is None:
+        return v
+    if lev.coarse_is_stride2:
+        return _slice_axis(v, 0, lev.n, 2, axis)
+    if lev.front_nc is not None:
+        f = 2 * lev.front_nc - 1
+        return torch.cat([_slice_axis(v, 0, f, 2, axis),
+                          v.narrow(axis, f, lev.n - f)], dim=axis)
+    idx = cached_tensor(lev.coarse_pos, torch.int64, v.device)
+    return v.index_select(axis, idx)
 
 
 def _lerp_tables(lev: DimLevel):
@@ -277,19 +289,15 @@ def restrict(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
     old = extract_old(v, lev, axis)
     if lev.new_pos is None or len(lev.new_pos) == 0:
         return old
-    if lev.coarse_is_stride2:
-        new = _slice_axis(v, 1, lev.n, 2, axis)
-        r = lev.new_ratio
-    elif lev.front_nc is not None:
-        # front-interleaved: new nodes at odd positions 1 .. 2*fc-3,
-        # between front parents j and j+1; the tail parents get nothing
-        fc = lev.front_nc
+    if lev.coarse_is_stride2 or lev.front_nc is not None:
+        # new nodes at odd positions 1 .. 2*fc - 3, between parents j and
+        # j+1; on a front-interleaved level the tail parents get nothing
+        fc = nc if lev.coarse_is_stride2 else lev.front_nc
         new = _slice_axis(v, 1, 2 * fc - 1, 2, axis)
-        rj = along_axis(lev.new_ratio, v, axis)
-        return old + pad_axis((1 - rj) * new, 0, nc - fc + 1, axis) \
-            + pad_axis(rj * new, 1, nc - fc, axis)
+        r = lev.new_ratio
     else:
         # general: each parent interval's new node (or none, masked to 0)
+        fc = nc
         seg = np.searchsorted(lev.coarse_pos, lev.new_pos) - 1
         dense_new = np.full(nc - 1, -1, dtype=np.int64)
         r = np.zeros(nc - 1, dtype=np.float64)
@@ -300,8 +308,9 @@ def restrict(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
             np.where(has, dense_new, 0), device=v.device))
         new = newv * along_axis(has.astype(np.float64), v, axis)
     rj = along_axis(r, v, axis)
-    return old + pad_axis((1 - rj) * new, 0, 1, axis) \
-        + pad_axis(rj * new, 1, 0, axis)
+    # old + pad((1 - r) * new) to parents j + pad(r * new) to parents j+1
+    return pad_fold(old, lambda: (1 - rj) * new, lambda: rj * new, fc - 1,
+                    axis)
 
 
 def _extract_old_all(hier: Hierarchy, A: torch.Tensor, l: int):
@@ -367,13 +376,14 @@ def decompose(hier: Hierarchy, v: torch.Tensor) -> List[torch.Tensor]:
     pyramid: List[torch.Tensor] = [None] * (hier.L + 1)
     A = v
     for l in range(hier.L, 0, -1):
-        C = _extract_old_all(hier, A, l)
-        if sk.gpk_supported(hier, l, A):
-            detail = sk.gpk_detail(hier, A, l)
-        else:
-            detail = A - _prolong_all(hier, C, l)
-        pyramid[l] = detail
-        A = C + _correction(hier, detail, l)
+        with table_scope():     # the level's tables leave the card after it
+            C = _extract_old_all(hier, A, l)
+            if sk.gpk_supported(hier, l, A):
+                detail = sk.gpk_detail(hier, A, l)
+            else:
+                detail = A - _prolong_all(hier, C, l)
+            pyramid[l] = detail
+            A = C + _correction(hier, detail, l)
     pyramid[0] = A
     return pyramid
 
@@ -391,9 +401,247 @@ def recompose_to_level(hier: Hierarchy, pyramid: Sequence[torch.Tensor],
     A = pyramid[0]
     for l in range(1, lmax + 1):
         detail = pyramid[l]
-        C = A - _correction(hier, detail, l)
-        if sk.gpk_supported(hier, l, detail):
-            A = sk.gpk_prolong_add(hier, C, detail, l)
-        else:
-            A = _prolong_all(hier, C, l) + detail
+        with table_scope():
+            C = A - _correction(hier, detail, l)
+            if sk.gpk_supported(hier, l, detail):
+                A = sk.gpk_prolong_add(hier, C, detail, l)
+            else:
+                A = _prolong_all(hier, C, l) + detail
     return A
+
+
+# ---------------------------------------------------------------------------
+# Pyramid <-> flat coefficient stream (``transform.py:599-829``)
+# ---------------------------------------------------------------------------
+#
+# The JAX package writes these maps as 0/1 selection matmuls and interior
+# pads, which suit a TPU; here they are slices, strided writes and
+# ``index_copy_``.  Selection is exact either way; where the JAX package
+# adds a zero pad, a zero is added here too (it turns a -0 into +0).
+
+def block_specs(hier: Hierarchy):
+    """The serialized coefficient blocks, in order: ``(level, region_id,
+    block_shape, positions)``, the coarse block first (level 0, region 0,
+    every node), then for each level 1..L its regions
+    (:meth:`Hierarchy.regions`); ``positions[d]`` selects the block along
+    dim d of the dense level array.  Cached on the hierarchy."""
+    cache = hier.__dict__.setdefault("_block_specs", [])
+    if cache:
+        return cache[0]
+    specs = [(0, 0, hier.shapes[0], tuple(
+        np.arange(hier.shapes[0][d], dtype=np.int64)
+        for d in range(hier.ndim)))]
+    for l in range(1, hier.L + 1):
+        for r, bshape, sel in hier.regions(l):
+            pos = []
+            for kind, lev in sel:
+                if kind == "new":
+                    pos.append(lev.new_pos)
+                else:
+                    pos.append(lev.coarse_pos if lev.coarse_pos is not None
+                               else np.arange(lev.n, dtype=np.int64))
+            specs.append((l, r, bshape, tuple(pos)))
+    cache.append(specs)
+    return specs
+
+
+def _region_slice(A: torch.Tensor, positions) -> torch.Tensor:
+    """``A[np.ix_(*positions)]``: a strided slice where a dim's positions
+    step evenly, else a gather."""
+    out = A
+    for d, pos in enumerate(positions):
+        n = out.shape[d]
+        pos = np.asarray(pos)
+        if len(pos) == n and np.array_equal(pos, np.arange(n)):
+            continue
+        step = int(pos[1] - pos[0]) if len(pos) > 1 else 1
+        if step > 0 and np.array_equal(
+                pos, np.arange(pos[0], pos[0] + step * len(pos), step)):
+            out = _slice_axis(out, int(pos[0]), int(pos[-1]) + 1, step, d)
+        else:
+            out = out.index_select(d, cached_tensor(pos, torch.int64,
+                                                    A.device))
+    return out
+
+
+def _parent_pieces(lev: DimLevel):
+    """Where the parent level's nodes sit along a dim of the level grid:
+    ``(grid slice, parent slice)`` pairs, or None for a general level
+    (a gather of ``coarse_pos``)."""
+    if lev.coarse_pos is None or len(lev.coarse_pos) == lev.n:
+        return [(slice(None), slice(None))]
+    if lev.coarse_is_stride2:
+        return [(slice(0, lev.n, 2), slice(None))]
+    if lev.front_nc is not None:
+        f = lev.front_nc
+        return [(slice(0, 2 * f - 1, 2), slice(0, f)),
+                (slice(2 * f - 1, lev.n), slice(f, None))]
+    return None
+
+
+def _parent_blocks(hier: Hierarchy, l: int):
+    """``(grid index, parent index)`` pairs that tile the parent nodes of
+    the level-``l`` grid (one a combination of each dim's pieces), or None
+    where a dim is general."""
+    pieces = [_parent_pieces(hier.dims[d][l]) for d in range(hier.ndim)]
+    if any(p is None for p in pieces):
+        return None
+    return [tuple(zip(*combo)) for combo in itertools.product(*pieces)]
+
+
+def _embed_dim(A: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
+    """``A`` along ``axis`` at the level's parent positions, zeros at its
+    new ones (the JAX ``_embed_old``'s step for one dim)."""
+    shp = list(A.shape)
+    shp[axis] = lev.n
+    out = A.new_zeros(shp)
+    pieces = _parent_pieces(lev)
+    if pieces is None:
+        return out.index_copy_(axis, cached_tensor(
+            lev.coarse_pos, torch.int64, A.device), A)
+    for dst, src in pieces:
+        idx = [slice(None)] * A.dim()
+        sidx = list(idx)
+        idx[axis], sidx[axis] = dst, src
+        out[tuple(idx)] = A[tuple(sidx)]
+    return out
+
+
+def pyramid_to_fine(hier: Hierarchy, pyramid: Sequence[torch.Tensor]
+                    ) -> torch.Tensor:
+    """The pyramid as one fine-grid array in physical order: every node
+    holds its own multilevel coefficient (``transform.py:681``).  Each
+    level's detail plus the coarser levels' array at its parent nodes."""
+    A = pyramid[0]
+    for l in range(1, hier.L + 1):
+        blocks = _parent_blocks(hier, l)
+        if blocks is None:
+            for d in _level_dims(hier, l):
+                A = _embed_dim(A, hier.dims[d][l], d)
+            A = pyramid[l] + A
+            continue
+        # detail + 0 everywhere (the embedding's zeros at new nodes),
+        # then + the coarser values at the parent nodes
+        out = pyramid[l] + 0
+        for dst, src in blocks:
+            out[dst] += A[src]
+        A = out
+    return A
+
+
+def _zero_old(hier: Hierarchy, D: torch.Tensor, l: int) -> torch.Tensor:
+    """``D`` with its parent positions zeroed: multiplied by 0 there and
+    kept elsewhere, as the JAX package's ``D * (1 - parents)`` does
+    (``transform.py:692``; a negative float gives -0)."""
+    blocks = _parent_blocks(hier, l)
+    if blocks is None:
+        keep = None
+        for d in range(hier.ndim):
+            lev = hier.dims[d][l]
+            m = np.zeros(lev.n) if lev.coarse_pos is not None \
+                else np.ones(lev.n)
+            if lev.coarse_pos is not None:
+                m[lev.coarse_pos] = 1.0
+            shp = [1] * D.dim()
+            shp[d] = lev.n
+            mv = torch.as_tensor(m, dtype=D.dtype,
+                                 device=D.device).reshape(shp)
+            keep = mv if keep is None else keep * mv
+        return D * (1 - keep)
+    out = D.clone()
+    for dst, _ in blocks:
+        out[dst] *= 0
+    return out
+
+
+def fine_to_pyramid(hier: Hierarchy, fine: torch.Tensor
+                    ) -> List[torch.Tensor]:
+    """Inverse of :func:`pyramid_to_fine`; integer streams too (their
+    coarse extraction takes the slices, K1 being float32 only)."""
+    out: List[torch.Tensor] = [None] * (hier.L + 1)
+    A = fine
+    for l in range(hier.L, 0, -1):
+        out[l] = _zero_old(hier, A, l)
+        A = _extract_old_all(hier, A, l)
+    out[0] = A
+    return out
+
+
+def pyramid_to_blocks(hier: Hierarchy, pyramid: Sequence[torch.Tensor]):
+    """The dense (level, region) coefficient blocks in serialization order
+    (:func:`block_specs`)."""
+    return [_region_slice(pyramid[l], pos)
+            for (l, _, _, pos) in block_specs(hier)]
+
+
+def _interleave_dim(old: torch.Tensor, new: torch.Tensor, lev: DimLevel,
+                    axis: int) -> torch.Tensor:
+    """Merge parent values (nc) and new-node values (nn) along ``axis``
+    into the dense level grid (n) (``transform.py:728``).  On a stride-2
+    or front-interleaved level the JAX package sums two zero-padded
+    arrays (each value plus a zero) and appends the tail parents; on any
+    other it scatters both into zeros."""
+    nc = old.shape[axis]
+    shp = list(old.shape)
+    shp[axis] = lev.n
+    if lev.coarse_is_stride2 or lev.front_nc is not None:
+        fc = nc if lev.coarse_is_stride2 else lev.front_nc
+        out = old.new_empty(shp)
+        torch.add(old.narrow(axis, 0, fc), 0,
+                  out=_slice_axis(out, 0, 2 * fc - 1, 2, axis))
+        torch.add(new, 0, out=_slice_axis(out, 1, 2 * fc - 2, 2, axis))
+        if fc < nc:
+            out.narrow(axis, 2 * fc - 1, nc - fc).copy_(
+                old.narrow(axis, fc, nc - fc))
+        return out
+    out = old.new_zeros(shp)
+    out.index_copy_(axis, cached_tensor(lev.coarse_pos, torch.int64,
+                                        old.device), old)
+    return out.index_copy_(axis, cached_tensor(lev.new_pos, torch.int64,
+                                               old.device), new)
+
+
+def blocks_to_pyramid(hier: Hierarchy, blocks) -> List[torch.Tensor]:
+    """Reassemble the dense level arrays from their (level, region)
+    blocks, merging one dim at a time (``transform.py:771``)."""
+    specs = block_specs(hier)
+    per_level = {l: {} for l in range(hier.L + 1)}
+    for (l, r, bshape, _), blk in zip(specs, blocks):
+        per_level[l][r] = blk.reshape(bshape)
+    out: List[torch.Tensor] = [None] * (hier.L + 1)
+    out[0] = per_level[0][0]
+    for l in range(1, hier.L + 1):
+        cur = dict(per_level[l])
+        # the all-parent region of a detail level is zero
+        coarse_shape = tuple(
+            len(hier.dims[d][l].coarse_pos)
+            if hier.dims[d][l].coarse_pos is not None else 1
+            for d in range(hier.ndim))
+        cur[0] = blocks[0].new_zeros(coarse_shape)
+        for d in range(hier.ndim):
+            lev = hier.dims[d][l]
+            if lev.new_pos is None or len(lev.new_pos) == 0:
+                continue
+            cur = {mask: _interleave_dim(blk, cur[mask | (1 << d)], lev, d)
+                   for mask, blk in cur.items() if not mask & (1 << d)}
+        out[l] = cur[0]
+    return out
+
+
+def flatten_pyramid(hier: Hierarchy, pyramid: Sequence[torch.Tensor]
+                    ) -> torch.Tensor:
+    """The pyramid as one level-major, region-blocked vector (the
+    LEVEL_BLOCKS stream)."""
+    return torch.cat([b.reshape(-1)
+                      for b in pyramid_to_blocks(hier, pyramid)])
+
+
+def unflatten_pyramid(hier: Hierarchy, flat: torch.Tensor
+                      ) -> List[torch.Tensor]:
+    """Inverse of :func:`flatten_pyramid`."""
+    blocks, off = [], 0
+    for (_, _, bshape, _) in block_specs(hier):
+        size = math.prod(bshape)
+        blocks.append(flat[off:off + size])
+        off += size
+    return blocks_to_pyramid(hier, blocks)

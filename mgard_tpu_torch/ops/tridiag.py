@@ -23,13 +23,22 @@ wherever a level does not take the dense matrices (a dim over
 :func:`mass_apply` stays plain torch, as it is plain XLA in JAX.
 
 Host tables that the operators read (spacings, ratios, indices, the
-solve's coefficients) are copied to a device once and kept there as long
-as the host array they come from lives (:func:`cached_tensor`).
+solve's coefficients) are converted to the data's type on the host once,
+into page-locked memory when a card is present, and kept there as long
+as the host array they come from lives; they are copied to a card as
+the operators need them (:func:`cached_tensor`).  Inside a
+:func:`table_scope` a table is copied once and dropped when the innermost
+open scope closes: the compressor opens one for each encode and decode,
+and the transform one for each level, so that no such table stays on the
+card after the call and at most one level's tables are there at a time.
+Outside any scope a table is copied for each use.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import mmap
 import weakref
 
 import numpy as np
@@ -38,7 +47,8 @@ import torch
 from . import _build
 
 __all__ = ["mass_apply", "mass_solve", "mass_solve_plain", "solve_tables",
-           "chunk_length", "cached_tensor", "pad_axis", "along_axis"]
+           "chunk_length", "cached_tensor", "table_scope", "pad_fold",
+           "along_axis"]
 
 # S1 cuts each line into chunks that run side by side (csrc/tridiag.cu):
 # enough chunks a line for about _SOLVE_THREADS threads in all, none
@@ -48,41 +58,122 @@ _SOLVE_THREADS = 1 << 17
 _SOLVE_MIN_CHUNK = 256
 _SOLVE_OVERLAP = 64
 
-_TENSORS = {}
+# The open table scopes, innermost last: each maps a key to a table made
+# while it was the innermost one.
+_SCOPES = []
+
+
+@contextlib.contextmanager
+def table_scope():
+    """Tables that :func:`cached_tensor` and :func:`mass_solve` copy to a
+    card while this scope is the innermost open one are copied once and
+    dropped when it closes (those of an enclosing scope stay)."""
+    _SCOPES.append({})
+    try:
+        yield
+    finally:
+        _SCOPES.pop()
 
 
 def _kept(arr: np.ndarray, key: tuple, build):
-    """``build()``, made once per ``key`` and host array ``arr`` and
-    dropped with the array."""
+    """``build()``, made once per ``key`` and host array ``arr`` in the
+    innermost open :func:`table_scope` (or taken from an enclosing one
+    that made it); made anew for each call when no scope is open."""
+    if not _SCOPES:
+        return build()
     key = (id(arr),) + key
-    hit = _TENSORS.get(key)
-    if hit is None:
-        hit = _TENSORS[key] = build()
-        weakref.finalize(arr, _TENSORS.pop, key, None)
+    for scope in reversed(_SCOPES):
+        hit = scope.get(key)
+        if hit is not None:
+            return hit
+    # the scope holds the array too, so that its id is not reused
+    hit = _SCOPES[-1][key] = build()
+    _SCOPES[-1][("array",) + key] = arr
     return hit
+
+
+_HOST = {}
+
+
+def _locked(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the CPU tensor ``t``; when a card is present, in pages of
+    its own (no other allocation shares them, so that no two tables lock
+    one page) registered with ``cudaHostRegister``, so that its copies to
+    a card are queued without waiting and run at the bus's rate."""
+    if not torch.cuda.is_available() or t.numel() == 0:
+        return t.clone()
+    nbytes = t.numel() * t.element_size()
+    span = -(-nbytes // mmap.PAGESIZE) * mmap.PAGESIZE
+    raw = torch.empty(span + mmap.PAGESIZE, dtype=torch.uint8)
+    start = -raw.data_ptr() % mmap.PAGESIZE
+    out = raw[start:start + nbytes].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    err = torch.cuda.cudart().cudaHostRegister(out.data_ptr(), span, 0)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister failed: {err}")
+    out._mgard_locked = span
+    return out
+
+
+def _drop_host(key) -> None:
+    hit = _HOST.pop(key, None)
+    for t in hit if isinstance(hit, tuple) else (hit,):
+        if getattr(t, "_mgard_locked", 0):
+            copied = getattr(t, "_mgard_copied", None)
+            if copied is not None:
+                copied.synchronize()        # no copy still reads it
+            torch.cuda.cudart().cudaHostUnregister(t.data_ptr())
+
+
+def locked_bytes() -> int:
+    """Bytes of host memory that the host tables hold page-locked."""
+    return sum(getattr(t, "_mgard_locked", 0) for hit in _HOST.values()
+               for t in (hit if isinstance(hit, tuple) else (hit,)))
+
+
+def _host_kept(arr: np.ndarray, key: tuple, build):
+    """``build()`` (a CPU tensor or a tuple of them, which may share
+    memory with ``arr``), copied once per ``key`` and host array ``arr``
+    (:func:`_locked`) and dropped with the array: the host side of a
+    table, which the calls that need it copy to the card
+    (:func:`_upload`)."""
+    key = (id(arr),) + key
+    hit = _HOST.get(key)
+    if hit is None:
+        hit = build()
+        hit = tuple(map(_locked, hit)) if isinstance(hit, tuple) \
+            else _locked(hit)
+        _HOST[key] = hit
+        weakref.finalize(arr, _drop_host, key)
+    return hit
+
+
+def _upload(host: torch.Tensor, device) -> torch.Tensor:
+    """A host table's copy on ``device``, queued on its current stream
+    without waiting; an event recorded after it tells when the host
+    pages are free again."""
+    out = host.to(device, non_blocking=True)
+    if getattr(host, "_mgard_locked", 0):
+        host._mgard_copied = torch.cuda.Event()
+        host._mgard_copied.record(torch.cuda.current_stream(device))
+    return out
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type != "cpu"
 
 
 def cached_tensor(arr: np.ndarray, dtype: torch.dtype, device
                   ) -> torch.Tensor:
-    """``torch.as_tensor(arr, dtype, device)``; on a card made once per
-    array, type and device and dropped with the array (the hierarchy's
-    tables live as long as their hierarchy).  A CPU tensor may share the
-    array's memory, so it is made anew each time."""
-    if torch.device(device).type == "cpu":
+    """``torch.as_tensor(arr, dtype, device)``; on a card copied from a
+    host tensor converted once per array and type (:func:`_host_kept`),
+    as :func:`_kept` says.  A CPU tensor may share the array's memory, so
+    it is made anew each time."""
+    if not _on_card(device):
         return torch.as_tensor(arr, dtype=dtype, device=device)
-    return _kept(arr, (dtype, str(device)), lambda: torch.as_tensor(
-        arr, dtype=dtype, device=device))
-
-
-def pad_axis(x: torch.Tensor, before: int, after: int, axis: int
-              ) -> torch.Tensor:
-    """Zeros before and after ``x`` along ``axis`` (``lax.pad``)."""
-    parts = []
-    for k in (before, after):
-        shp = list(x.shape)
-        shp[axis] = k
-        parts.append(x.new_zeros(shp))
-    return torch.cat([parts[0], x, parts[1]], dim=axis)
+    host = _host_kept(arr, (dtype,), lambda: torch.as_tensor(arr,
+                                                             dtype=dtype))
+    return _kept(arr, (dtype, str(device)), lambda: _upload(host, device))
 
 
 def along_axis(vec, like: torch.Tensor, axis: int) -> torch.Tensor:
@@ -108,12 +199,47 @@ def mass_apply(v: torch.Tensor, h: np.ndarray, axis: int) -> torch.Tensor:
     lo = v.narrow(axis, 0, n - 1)
     hi = v.narrow(axis, 1, n - 1)
     # each interval [x_j, x_{j+1}] adds h/3 * its own end + h/6 * the
-    # other to each of its two nodes
+    # other to each of its two nodes: left = third*lo + sixth*hi to node
+    # j, right = sixth*lo + third*hi to node j+1.  The JAX package sums
+    # the two zero-padded arrays; the same float operations run here in
+    # place, in one output and two temporaries: out[:-1] = left, out[-1]
+    # = 0, out[1:] += right, and out[0] += 0, the pad's zero, which
+    # turns a -0 into +0 as the padded sum does
     third = hb / 3
     sixth = hb / 6
-    left = third * lo + sixth * hi     # to node j
-    right = sixth * lo + third * hi    # to node j+1
-    return pad_axis(left, 0, 1, axis) + pad_axis(right, 1, 0, axis)
+    out = torch.empty_like(v)
+    out_lo = out.narrow(axis, 0, n - 1)
+    torch.mul(third, lo, out=out_lo)
+    tmp = sixth * hi
+    out_lo += tmp
+    out.narrow(axis, n - 1, 1).zero_()
+    torch.mul(third, hi, out=tmp)
+    right = sixth * lo
+    right += tmp
+    del tmp
+    out.narrow(axis, 1, n - 1).add_(right)
+    del right
+    out.narrow(axis, 0, 1).add_(0.0)
+    return out
+
+
+def pad_fold(old: torch.Tensor, left_fn, right_fn, k: int, axis: int
+             ) -> torch.Tensor:
+    """``old + pad(left, 0, nc - k) + pad(right, 1, nc - k - 1)`` along
+    ``axis``, with ``left = left_fn()`` and ``right = right_fn()`` of
+    length ``k`` there and ``nc`` that of ``old``: summed left to right as
+    the JAX package sums the padded arrays, into one new tensor, each
+    temporary made only when it is added."""
+    nc = old.shape[axis]
+    out = torch.empty(old.shape, dtype=old.dtype, device=old.device)
+    torch.add(old.narrow(axis, 0, k), left_fn(), out=out.narrow(axis, 0, k))
+    # the pads' zeros: x + 0 turns a -0 into +0, and adding 0 twice is
+    # adding it once
+    torch.add(old.narrow(axis, k, nc - k), 0.0,
+              out=out.narrow(axis, k, nc - k))
+    out.narrow(axis, 1, k).add_(right_fn())
+    out.narrow(axis, 0, 1).add_(0.0)
+    return out
 
 
 def solve_tables(offdiag: np.ndarray, divisors: np.ndarray, dtype):
@@ -127,11 +253,12 @@ def solve_tables(offdiag: np.ndarray, divisors: np.ndarray, dtype):
 
 
 def _device_tables(offdiag, divisors, dtype, device):
-    """:func:`solve_tables` on ``device``, made once per level (kept as
-    long as the level's divisors array lives)."""
+    """:func:`solve_tables` on ``device``, kept as :func:`_kept` says,
+    copied from host tensors made once per level."""
+    host = _host_kept(divisors, ("solve", dtype), lambda: tuple(
+        torch.from_numpy(a) for a in solve_tables(offdiag, divisors, dtype)))
     return _kept(divisors, ("solve", dtype, str(device)), lambda: tuple(
-        torch.as_tensor(a, device=device)
-        for a in solve_tables(offdiag, divisors, dtype)))
+        _upload(t, device) for t in host))
 
 
 def chunk_length(n: int, m: int) -> int:

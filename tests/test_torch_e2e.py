@@ -83,12 +83,11 @@ def test_status_errors():
 def test_unported_branches_raise():
     v = _field((33, 33, 33))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, device="cpu",      # the FINE layout
-                    config=mt.Config(layout=mt.config.Layout.FINE))
+        mt.compress(v, 1e-3, device="cpu",      # a host lossless
+                    config=mt.Config(lossless=mt.Lossless.HUFFMAN_ZLIB))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, device="cpu",      # SINGLEDIM
-                    config=mt.Config(
-                        decomposition=mt.config.Decomposition.SINGLEDIM))
+        mt.compress(v, 1e-3, device="cpu",      # a zstd second stage
+                    config=mt.Config(lossless=mt.Lossless.BITPLANE_ZSTD))
     huffman = tfmt.write_container(tfmt.Header(
         dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
         error_mode=0, s=math.inf, tolerance=1e-3, norm=1.0,

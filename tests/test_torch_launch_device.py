@@ -113,6 +113,7 @@ def card(monkeypatch):
         return make
 
     monkeypatch.setattr(_build, "lib", lambda: Lib())
+    monkeypatch.setattr(td, "_upload", lambda t, device: _fake(device, t))
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
     for name in ("empty", "zeros", "as_tensor"):

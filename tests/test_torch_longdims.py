@@ -432,3 +432,152 @@ def test_chunk_length():
     assert ttd.chunk_length(100, 1) == 100              # under 256 nodes
     c = ttd.chunk_length((1 << 28) + 1, 1)              # a 1-D series
     assert -(-((1 << 28) + 1) // c) <= 1 << 17 and c >= 256
+
+
+# ---------------------------------------------------------------------------
+# device memory of the per-dim form
+# ---------------------------------------------------------------------------
+
+def _pad(x, before, after, axis):
+    """The zero pads the transform summed before its in-place form."""
+    parts = []
+    for k in (before, after):
+        shp = list(x.shape)
+        shp[axis] = k
+        parts.append(x.new_zeros(shp))
+    return torch.cat([parts[0], x, parts[1]], dim=axis)
+
+
+def _old_mass_apply(v, h, axis):
+    n = v.shape[axis]
+    hb = ttd.along_axis(h, v, axis)
+    lo, hi = v.narrow(axis, 0, n - 1), v.narrow(axis, 1, n - 1)
+    third, sixth = hb / 3, hb / 6
+    return _pad(third * lo + sixth * hi, 0, 1, axis) \
+        + _pad(sixth * lo + third * hi, 1, 0, axis)
+
+
+def _old_restrict(v, lev, axis):
+    nc = len(lev.coarse_pos)
+    old = v.index_select(axis, torch.as_tensor(lev.coarse_pos))
+    fc = nc if lev.coarse_is_stride2 else lev.front_nc
+    new = tt._slice_axis(v, 1, 2 * fc - 1, 2, axis)
+    rj = ttd.along_axis(lev.new_ratio, v, axis)
+    return old + _pad((1 - rj) * new, 0, nc - fc + 1, axis) \
+        + _pad(rj * new, 1, nc - fc, axis)
+
+
+def _levels():
+    """Stride-2 and front-interleaved levels, uniform and not."""
+    out = []
+    for n, coords in ((33, None), (40, None), (40, "random"), (4100, None)):
+        c = None if coords is None else [np.sort(np.concatenate(
+            [[0.0, 1.0], np.random.default_rng(n).uniform(size=n - 2)]))]
+        h = Hierarchy((n,), coordinates=c)
+        out += [h.dims[0][h.L], h.dims[0][h.L - 1]]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_in_place_operators_bit_for_bit(axis, dtype):
+    """``mass_apply`` and ``restrict`` in one output are the padded sums
+    bit for bit (-0 and the end nodes too), and the sliced
+    ``extract_old`` is the ``coarse_pos`` gather."""
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    levels = _levels()
+    assert any(lv.coarse_is_stride2 for lv in levels)
+    assert any(lv.front_nc is not None for lv in levels)
+    assert any(not np.allclose(np.diff(lv.h), 0) for lv in levels)
+    for lev in levels:
+        shape = [3, 4, 5]
+        shape[axis] = lev.n
+        v = torch.from_numpy(np.random.default_rng(lev.n).standard_normal(
+            shape)).to(dtype)
+        v.select(axis, 0).fill_(-0.0)
+        v.select(axis, lev.n - 1)[0] = -0.0
+        for got, want in (
+                (ttd.mass_apply(v, lev.h, axis),
+                 _old_mass_apply(v, lev.h, axis)),
+                (tt.restrict(v, lev, axis), _old_restrict(v, lev, axis)),
+                (tt.extract_old(v, lev, axis),
+                 v.index_select(axis, torch.as_tensor(lev.coarse_pos)))):
+            assert got.shape == want.shape
+            assert torch.equal(got.contiguous().view(view),
+                               want.contiguous().view(view))
+
+
+def test_per_dim_tables_leave_the_card(monkeypatch):
+    """With a card faked (the CPU takes the card's table path, a copy
+    standing in for each upload), each encode and decode of a long-dim
+    array copies its tables in table scopes, one per level, and leaves
+    none after it; outside a scope a table is copied for each use."""
+    monkeypatch.setattr(ttd, "_on_card", lambda device: True)
+    monkeypatch.setattr(ttd, "_upload", lambda host, device: host.clone())
+    made = []
+    kept = ttd._kept
+    monkeypatch.setattr(ttd, "_kept", lambda arr, key, build: made.append(
+        len(ttd._SCOPES)) or kept(arr, key, build))
+    comp = mt.get_compressor((5000,), np.float32, device="cpu")
+    v = _field((5000,))
+    out = comp.encode_device(torch.from_numpy(v), 1e-3)
+    assert made and min(made) == 2          # call scope + level scope
+    assert not ttd._SCOPES
+    n = len(made)
+    comp.sections_from_outputs(*out)
+    buf = comp.compress(v, 1e-3)
+    assert np.abs(mt.decompress(buf, device="cpu") - v).max() <= 1e-3
+    assert len(made) > n and not ttd._SCOPES
+    lev = comp.hier.dims[0][comp.hier.L]
+    t = ttd.cached_tensor(lev.h, torch.float32, "cpu")
+    again = ttd.cached_tensor(lev.h, torch.float32, "cpu")
+    assert again is not t and torch.equal(again, t)
+    with ttd.table_scope():
+        t = ttd.cached_tensor(lev.h, torch.float32, "cpu")
+        with ttd.table_scope():
+            u = ttd.cached_tensor(lev.new_ratio, torch.float32, "cpu")
+            assert ttd.cached_tensor(lev.new_ratio, torch.float32,
+                                     "cpu") is u
+            assert ttd.cached_tensor(lev.h, torch.float32, "cpu") is t
+        # the table and its host array, in the scope that made it
+        assert len(ttd._SCOPES) == 1 and len(ttd._SCOPES[0]) == 2
+    assert not ttd._SCOPES and ttd.locked_bytes() == 0
+    mt.release_cache()
+
+
+def test_planner_counts_the_per_dim_peak():
+    """A long-dim shape is planned at the port's measured peak, over the
+    JAX estimate: a cap between the two splits it where the JAX package
+    would not."""
+    shape = (1 << 26,)
+    cap = (mgard_tpu.estimate_memory_footprint(shape, np.float32)
+           + api.estimate_memory_footprint(shape, np.float32)) // 2
+    assert api.footprint_per_byte(shape) \
+        == 1.15 * api.PEAK_PER_BYTE["per_dim"]
+    cfg = mt.Config(max_memory_footprint=cap)
+    assert api.plan_blocks(shape, np.float32, cfg, "cpu") == 2
+    assert mgard_tpu.api.plan_blocks(shape, np.float32, mgard_tpu.Config(
+        max_memory_footprint=cap)) == 1
+    assert api.footprint_per_byte((4096, 4096)) == api.FOOTPRINT_PER_BYTE
+
+
+@pytest.mark.parametrize("config, shape, key", [
+    (dict(decomposition=mt.Decomposition.SINGLEDIM), (512,) * 3,
+     "singledim"),
+    (dict(decomposition=mt.Decomposition.SINGLEDIM), (1 << 20,), "per_dim"),
+    (dict(decomposition=mt.Decomposition.HYBRID, num_local_levels=2),
+     (512,) * 3, "hybrid"),
+    (dict(layout=mt.Layout.PYRAMID), (512,) * 3, "pyramid"),
+    (dict(layout=mt.Layout.FINE), (512,) * 3, "fine"),
+    (dict(layout=mt.Layout.LEVEL_BLOCKS), (512,) * 3, "level_blocks"),
+    (dict(layout=mt.Layout.FINE), (8, 8192), "per_dim"),
+], ids=str)
+def test_planner_factor_per_configuration(config, shape, key):
+    """Each flat stream is planned at its own measured peak, a long dim
+    at the per-dim one where that is higher, float64 at the wide codec's
+    where that is."""
+    cfg = mt.Config(**config)
+    assert api.footprint_per_byte(shape, np.float32, cfg) \
+        == 1.15 * api.PEAK_PER_BYTE[key]
+    wide = max(api.PEAK_PER_BYTE[key], api.PEAK_PER_BYTE["wide"])
+    assert api.footprint_per_byte(shape, np.float64, cfg) == 1.15 * wide
