@@ -25,11 +25,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .config import Config, Decomposition, ErrorMode, Layout
+from .config import Config, Decomposition, ErrorMode, Layout, Lossless
 from .io import format as fmt
-from .models.compressor import (Compressor, _cached_compressor,
-                                _cached_hierarchy, _corrupted, _not_ported,
-                                get_compressor, norm_of)
+from .models.compressor import (_HOST_LOSSLESS, Compressor,
+                                _cached_compressor, _cached_hierarchy,
+                                _corrupted, _not_ported, get_compressor,
+                                norm_of)
 from .parallel.domain import block_grid_blocks, local_abs_tol
 
 __all__ = ["compress", "decompress", "release_cache", "resolve_device",
@@ -120,11 +121,13 @@ FOOTPRINT_PER_BYTE = 3.9 * 1.15
 # for the others); float64 data (512^3, the wide codec); and float32 at
 # 512^3 on each flat stream: the SINGLEDIM and HYBRID decompositions
 # (HYBRID at the higher of its peaks with one and two local levels) and
-# the PYRAMID, FINE and LEVEL_BLOCKS layouts.  The planner counts the
-# highest that applies with the JAX package's 1.15 margin.
+# the PYRAMID, FINE and LEVEL_BLOCKS layouts; and a host lossless's
+# integer stream (HUFFMAN_*, NONE: the PYRAMID stream of PYRAMID_SEG).
+# The planner counts the highest that applies with the JAX package's
+# 1.15 margin.
 PEAK_PER_BYTE = {"per_dim": 10.1215, "wide": 9.1495, "singledim": 5.5039,
                  "hybrid": 7.5251, "pyramid": 6.7386, "fine": 5.2500,
-                 "level_blocks": 5.5327}
+                 "level_blocks": 5.5327, "host": 5.8655}
 _LAYOUT_PEAK = {Layout.PYRAMID: "pyramid", Layout.FINE: "fine",
                 Layout.LEVEL_BLOCKS: "level_blocks"}
 
@@ -149,6 +152,8 @@ def footprint_per_byte(shape, dtype=np.float32,
         peaks.append(PEAK_PER_BYTE["hybrid"])
     elif cfg.layout in _LAYOUT_PEAK:
         peaks.append(PEAK_PER_BYTE[_LAYOUT_PEAK[cfg.layout]])
+    if cfg.lossless in _HOST_LOSSLESS:
+        peaks.append(PEAK_PER_BYTE["host"])
     return 1.15 * max(peaks) if peaks else FOOTPRINT_PER_BYTE
 
 
@@ -419,15 +424,16 @@ def _wire_decomposition(cfg: Config) -> int:
 
 
 def _config_from_header(header: fmt.Header) -> Config:
-    """The configuration a container's decomposition and layout bytes
-    name (``mgard_tpu/api.py:540``): 2 and above are HYBRID with the
+    """The configuration a container's decomposition, layout and lossless
+    bytes name (``mgard_tpu/api.py:540``): 2 and above are HYBRID with the
     byte less one local levels."""
+    lossless = Lossless(header.lossless)
     if header.decomposition >= 2:
         return Config(decomposition=Decomposition.HYBRID,
                       num_local_levels=header.decomposition - 1,
-                      layout=Layout(header.layout))
+                      layout=Layout(header.layout), lossless=lossless)
     return Config(decomposition=Decomposition(header.decomposition),
-                  layout=Layout(header.layout))
+                  layout=Layout(header.layout), lossless=lossless)
 
 
 def compressor_for(header: fmt.Header, device=None) -> Compressor:
@@ -436,7 +442,8 @@ def compressor_for(header: fmt.Header, device=None) -> Compressor:
         raise ValueError("a multi-block container has a compressor per "
                          "block; decode it with decompress()")
     if header.roi_block:
-        raise _not_ported("ROI containers", "queue A, item 6")
+        raise ValueError("an ROI container has no compressor of its own; "
+                         "decode it with decompress()")
     return get_compressor(header.shape, header.dtype, s=header.s,
                           coordinates=header.coordinates,
                           config=_config_from_header(header),
@@ -526,6 +533,9 @@ def _decompress(buf, device) -> np.ndarray:
         out = _decompress_blocknd(header, sections, device)
     elif header.dd_nblocks:
         out = _decompress_multiblock(header, sections, device)
+    elif header.roi_block:
+        from .models.roi import decompress_roi
+        out = decompress_roi(header, sections, device=device)
     else:
         out = compressor_for(header, device).decompress_parsed(header,
                                                               sections)

@@ -5,6 +5,14 @@ container.  A container written by ``mgard_tpu`` decodes with
 :func:`mgard_tpu_torch.decompress` as it is (the two share the format).
 A pyramid produced by ``mgard_tpu.ops.transform.decompose`` crosses as a
 list of numpy arrays, one per level, coarsest first.
+
+The models cross the same way.  ROI containers and host-lossless
+containers (Huffman + zlib/zstd, NONE, and the zstd/LZ4 second stages)
+are containers: they cross as bytes.  An MDR artifact crosses as
+``MDRMetadata.pack()`` plus its stream bytes, which
+``mgard_tpu_torch.models.mdr.MDRMetadata.unpack`` and an
+``MDReconstructor`` read as they are.  A QoI weight array crosses as a
+numpy array.
 """
 
 from __future__ import annotations

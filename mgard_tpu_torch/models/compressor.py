@@ -38,9 +38,17 @@ array it returns.  A round trip waits on the device three times: the
 status, word count and exponents, the stream's words, and the decoded
 array.
 
-Branches of the JAX package that the port does not have yet (the host
-losslesses, the zstd/LZ4 second stages) raise ``NotImplementedError``
-naming their ROADMAP entry.
+Every lossless of ``Config.Lossless`` runs.  The host losslesses
+(``HUFFMAN_ZLIB``, ``HUFFMAN_ZSTD``, ``NONE``; ``compressor.py:495-553``)
+take the flat integer stream of ``_quantized_flat`` read back through
+:class:`ReadBack` and code it on the host (the Huffman codec of
+``io/huffman_native.py``, then zlib or zstd; or the raw integers at the
+narrowest width that holds them); the PYRAMID_SEG layout writes them the
+identical-bytes PYRAMID stream.  The zstd and LZ4 second stages
+(``compressor.py:453-463``, ``:600-611``) code the two bitplane sections
+on the host after the read-back.  ``zstandard`` is imported where a zstd
+stage runs, so that a machine without it raises ``ModuleNotFoundError``
+there and nowhere else; no stage ever falls back to another.
 
 Tables that the operators copy to the card (``tridiag.cached_tensor``,
 S1's coefficients) live for one encode or decode
@@ -52,6 +60,8 @@ from __future__ import annotations
 
 import functools
 import math
+import struct
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -143,6 +153,12 @@ class ReadBack:
         return self.host
 
 
+class HostStream(ReadBack):
+    """A host lossless's read-back handle: the flat integer stream and
+    its status, which :meth:`Compressor.finalize_sections` codes on the
+    host."""
+
+
 def norm_of(v: torch.Tensor, s: float) -> torch.Tensor:
     """The norm that REL mode scales the tolerance by
     (``compressor.py:389``): max|v| for L-infinity control, else the root
@@ -217,14 +233,6 @@ class Compressor:
         if self.dtype == _F64:
             return "wide"
         return "grouped" if lossless.grouped else "chunked"
-
-    def _check_ported(self, lossless: Lossless) -> None:
-        if lossless in _HOST_LOSSLESS:
-            raise _not_ported(f"the host lossless {lossless.name}",
-                              "queue A, item 5")
-        if lossless.second_stage is not None:
-            raise _not_ported(f"the {lossless.second_stage} second stage",
-                              "queue A, item 5")
 
     # ------------------------------------------------------------------
     # the flat stream
@@ -359,9 +367,11 @@ class Compressor:
     # ------------------------------------------------------------------
     def encode_device(self, v: torch.Tensor, abs_tol: float):
         """decompose + quantize + encode on the device: ``(exponents,
-        words, count, status)`` tensors, not yet read back."""
-        self._check_ported(self.lossless)
+        words, count, status)`` tensors, not yet read back; for a host
+        lossless ``(flat integer stream, status)``."""
         with table_scope():
+            if self.lossless in _HOST_LOSSLESS:
+                return self._quantized_flat(v, abs_tol)
             return self._encode_device(v, abs_tol)
 
     def _encode_device(self, v: torch.Tensor, abs_tol: float):
@@ -389,7 +399,6 @@ class Compressor:
         """Decode + dequantize + recompose on the device; ``lossless`` is
         the container's (default: this compressor's)."""
         lossless = self.lossless if lossless is None else lossless
-        self._check_ported(lossless)
         with table_scope():
             return self._decode_device(exponents, words, abs_tol, lossless)
 
@@ -419,17 +428,27 @@ class Compressor:
     # ------------------------------------------------------------------
     # host-facing API
     # ------------------------------------------------------------------
-    def read_back_outputs(self, exponents, words, count, status):
-        """The handle that :meth:`finalize_sections` takes: the read-back
-        of the exponents, word count and status, behind an event recorded
-        now, and the words, whose length is the count."""
+    def read_back_outputs(self, *outputs):
+        """The handle that :meth:`finalize_sections` takes, from the
+        outputs of :meth:`encode_device`: the read-back of the exponents,
+        word count and status, behind an event recorded now, and the
+        words, whose length is the count; for a host lossless a
+        :class:`HostStream`."""
+        if self.lossless in _HOST_LOSSLESS:
+            return HostStream(self.device, outputs)
+        exponents, words, count, status = outputs
         small = torch.stack([count.to(torch.int64), status.to(torch.int64)])
         return words, ReadBack(self.device, [exponents, small])
 
     def finalize_sections(self, handle) -> List[bytes]:
         """Wait for a handle's read-back and build the container sections:
-        [exponent bytes, word bytes].  Waits on the handle's copies, not on
-        the device."""
+        [exponent bytes, word bytes], each through the second stage if the
+        lossless has one; for a host lossless the one host-coded section.
+        Waits on the handle's copies, not on the device."""
+        if isinstance(handle, HostStream):
+            flat, status = handle.wait()
+            _raise_status(int(status))
+            return [self._host_lossless_encode(flat.numpy())]
         words, small = handle
         exp_host, count_status = small.wait()
         count, status = (int(x) for x in count_status.tolist())
@@ -445,15 +464,24 @@ class Compressor:
         # count).
         nz = np.nonzero(exp_np)[0]
         exp_np = exp_np[:int(nz[-1]) + 1] if len(nz) else exp_np[:0]
-        return [exp_np.tobytes(),
-                np.ascontiguousarray(words_host.numpy(), "<i4").tobytes()]
+        exp_bytes = exp_np.tobytes()
+        word_bytes = np.ascontiguousarray(words_host.numpy(), "<i4").tobytes()
+        stage = self.lossless.second_stage
+        if stage == "zstd":
+            import zstandard
+            cctx = zstandard.ZstdCompressor(level=self.config.zstd_level)
+            exp_bytes = cctx.compress(exp_bytes)
+            word_bytes = cctx.compress(word_bytes)
+        elif stage == "lz4":
+            from ..io.lz4_native import lz4_compress
+            exp_bytes = lz4_compress(exp_bytes)
+            word_bytes = lz4_compress(word_bytes)
+        return [exp_bytes, word_bytes]
 
-    def sections_from_outputs(self, exponents, words, count,
-                              status) -> List[bytes]:
-        """Read back the device encode outputs and build the container
-        sections, at once."""
-        return self.finalize_sections(
-            self.read_back_outputs(exponents, words, count, status))
+    def sections_from_outputs(self, *outputs) -> List[bytes]:
+        """Read back the outputs of :meth:`encode_device` and build the
+        container sections, at once."""
+        return self.finalize_sections(self.read_back_outputs(*outputs))
 
     def encode_async(self, v, abs_tol: float):
         """Queue the device encode of ``v`` (numpy or torch) and return
@@ -482,7 +510,6 @@ class Compressor:
 
     def compress(self, v, tolerance: float,
                  mode: ErrorMode = ErrorMode.ABS) -> bytes:
-        self._check_ported(self.lossless)
         v = self._as_tensor(v)
         norm = 1.0
         abs_tol = float(tolerance)
@@ -504,26 +531,111 @@ class Compressor:
             layout=int(self.config.layout))
         return fmt.write_container(header, sections)
 
+    # ------------------------------------------------------------------
+    # host losslesses (compressor.py:495-553)
+    # ------------------------------------------------------------------
+    def _host_lossless_encode(self, flat_np: np.ndarray) -> bytes:
+        """Code the read-back integer stream with the host lossless.
+        HUFFMAN_ZLIB / HUFFMAN_ZSTD: the reference CPU back end's Huffman
+        codec, then zlib (level 6) or zstd (``zstd_level``) of {tree,
+        hit words, misses}, behind ``<QQQ>`` (tree size, hit bits, miss
+        size).  NONE: the raw little-endian integers at the narrowest
+        width that holds the stream, behind its code byte (2, 1, 0, 3 for
+        i1, i2, i4, i8), so each block of a multi-block container picks
+        its own."""
+        if self.lossless == Lossless.NONE:
+            amax = int(np.abs(flat_np).max()) if flat_np.size else 0
+            for code, dt, top in ((2, "<i1", 127), (1, "<i2", 32767),
+                                  (0, "<i4", 2 ** 31 - 1)):
+                if amax <= top:
+                    break
+            else:
+                code, dt = 3, "<i8"
+            return bytes([code]) + flat_np.astype(dt).tobytes()
+        if self.lossless == Lossless.HUFFMAN_ZSTD:
+            import zstandard    # before the Huffman pass, which needs it
+            pack = zstandard.ZstdCompressor(
+                level=self.config.zstd_level).compress
+        else:
+            pack = functools.partial(zlib.compress, level=6)
+        from ..io.huffman_native import huffman_encode
+        tree, hit, hit_bits, miss = huffman_encode(flat_np.astype(np.int64))
+        return struct.pack("<QQQ", len(tree), hit_bits, len(miss)) \
+            + pack(tree + hit + miss)
+
+    def _host_lossless_decode(self, payload: bytes,
+                              lossless: Lossless) -> np.ndarray:
+        """The integer stream of a host-lossless section: int32 for
+        float32 data, int64 for float64."""
+        n = self._nstream
+        int_dt = np.int64 if self.dtype == _F64 else np.int32
+        if lossless == Lossless.NONE:
+            widths = {0: "<i4", 1: "<i2", 2: "<i1", 3: "<i8"}
+            if not payload or payload[0] not in widths:
+                raise _corrupted("unknown integer width code")
+            dt = np.dtype(widths[payload[0]])
+            if len(payload) - 1 != n * dt.itemsize:
+                raise _corrupted("stream size does not match the header")
+            return np.frombuffer(payload, dtype=dt, offset=1).astype(int_dt)
+        if len(payload) < 24:
+            raise _corrupted("truncated Huffman preamble")
+        tree_size, hit_bits, miss_size = struct.unpack_from("<QQQ", payload)
+        hit_size = hit_bits // 8 + 4
+        inner_size = tree_size + hit_size + miss_size
+        if lossless == Lossless.HUFFMAN_ZSTD:
+            import zstandard
+            inner = zstandard.ZstdDecompressor().decompress(
+                payload[24:], max_output_size=inner_size)
+        else:
+            inner = zlib.decompress(payload[24:])
+        if len(inner) != inner_size:
+            raise _corrupted("Huffman sections do not match their sizes")
+        from ..io.huffman_native import huffman_decode
+        q = huffman_decode(inner[:tree_size],
+                           inner[tree_size:tree_size + hit_size], hit_bits,
+                           inner[tree_size + hit_size:], n)
+        return q.astype(int_dt)
+
+    def _decode_parsed(self, header: fmt.Header, sections: List[bytes]
+                       ) -> torch.Tensor:
+        """Queue the device decode of a parsed container: the bitplane
+        sections through :meth:`stream_tensors` and
+        :meth:`decode_device`, a host-lossless section through the host
+        decode and ``_flat_to_array``."""
+        lossless = Lossless(header.lossless)
+        if lossless not in _HOST_LOSSLESS:
+            exponents, words = self.stream_tensors(header, sections)
+            return self.decode_device(exponents, words, header.tolerance,
+                                      lossless)
+        if tuple(header.shape) != self.hier.shape:
+            raise ValueError("container shape mismatch")
+        flat = torch.from_numpy(self._host_lossless_decode(
+            sections[0], lossless)).to(self.device)
+        with table_scope():
+            return self._flat_to_array(flat, header.tolerance)
+
     def decompress_parsed(self, header: fmt.Header,
                           sections: List[bytes]) -> np.ndarray:
-        exponents, words = self.stream_tensors(header, sections)
-        return self.decode_device(exponents, words, header.tolerance,
-                                  Lossless(header.lossless)).cpu().numpy()
+        return self._decode_parsed(header, sections).cpu().numpy()
 
-    def _stream_geometry(self, codec: str) -> Tuple[int, int, int]:
-        """(exponent count, words per exponent unit, most planes a unit)
-        of a stream (``compressor.py:587-604``)."""
+    def _stream_geometry(self, codec: str) -> Tuple[int, int, int, int]:
+        """(exponent count, words per exponent unit, most planes a unit,
+        word capacity) of a stream (``compressor.py:587-604``)."""
         C, n = self.chunk_groups, self._nstream
         if codec == "segmented":
             return (sum(bitplane.num_chunks_tiled(sz, C)
-                        for sz in self._seg_sizes), C, 32)
+                        for sz in self._seg_sizes), C, 32,
+                    bitplane.max_words_segments(self._seg_sizes, C))
         if codec == "grouped":
             # per-group exponents are padded to whole chunks of the
             # container's width
-            return bitplane.num_chunks(n, C) * C, 1, 32
+            return bitplane.num_chunks(n, C) * C, 1, 32, \
+                bitplane.max_words(n, C)
         if codec == "wide":
-            return bitplane.num_chunks64_tiled(n, C), C, 64
-        return bitplane.num_chunks_tiled(n, C), C, 32
+            return bitplane.num_chunks64_tiled(n, C), C, 64, \
+                bitplane.max_words64(n, C)
+        return bitplane.num_chunks_tiled(n, C), C, 32, \
+            bitplane.max_words(n, C)
 
     def stream_tensors(self, header: fmt.Header, sections: List[bytes]
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -533,10 +645,18 @@ class Compressor:
         if tuple(header.shape) != self.hier.shape:
             raise ValueError("container shape mismatch")
         hls = Lossless(header.lossless)
-        self._check_ported(hls)
         codec = self._codec(hls)
-        n_exp, unit, max_planes = self._stream_geometry(codec)
+        n_exp, unit, max_planes, cap = self._stream_geometry(codec)
         exp_bytes, word_bytes = sections[0], sections[1]
+        if hls.second_stage == "zstd":
+            import zstandard
+            dctx = zstandard.ZstdDecompressor()
+            exp_bytes = dctx.decompress(exp_bytes, max_output_size=n_exp)
+            word_bytes = dctx.decompress(word_bytes, max_output_size=4 * cap)
+        elif hls.second_stage == "lz4":
+            from ..io.lz4_native import lz4_decompress
+            exp_bytes = lz4_decompress(exp_bytes, max_output_size=n_exp)
+            word_bytes = lz4_decompress(word_bytes, max_output_size=4 * cap)
         stored = np.frombuffer(exp_bytes, dtype=np.uint8)
         if len(stored) > n_exp or len(word_bytes) % (4 * unit):
             raise _corrupted("stream sizes do not match the header")
@@ -559,9 +679,7 @@ class Compressor:
                      ) -> ReadBack:
         """Queue the device decode of a parsed container and return at
         once: a :class:`ReadBack` of the array."""
-        exponents, words = self.stream_tensors(header, sections)
-        return ReadBack(self.device, [self.decode_device(
-            exponents, words, header.tolerance, Lossless(header.lossless))])
+        return ReadBack(self.device, [self._decode_parsed(header, sections)])
 
 
 @functools.lru_cache(maxsize=32)
@@ -589,18 +707,23 @@ def _cached_compressor(shape: Tuple[int, ...], dtype_str: str, s: float,
                       chunk_groups=chunk_groups, device=device)
 
 
+def coords_key(coordinates):
+    """The hashable key of a grid's coordinates (None for a uniform
+    grid), as the caches take it."""
+    if coordinates is None:
+        return None
+    return tuple(tuple(float(x) for x in c) for c in coordinates)
+
+
 def get_compressor(shape, dtype, s: float = math.inf, coordinates=None,
                    config: Optional[Config] = None, chunk_groups: int = 0,
                    device="cuda") -> Compressor:
     """Cached compressor lookup, one per (shape, dtype, grid, config,
     chunk width, device)."""
     cfg = config or Config()
-    coords_key = None
-    if coordinates is not None:
-        coords_key = tuple(tuple(float(x) for x in c) for c in coordinates)
     return _cached_compressor(
         tuple(int(x) for x in shape), np.dtype(dtype).str, float(s),
-        coords_key,
+        coords_key(coordinates),
         (int(cfg.lossless), cfg.zstd_level, int(cfg.decomposition),
          int(cfg.layout), int(cfg.num_local_levels), cfg.adapt_lossless,
          int(cfg.chunk_groups)),

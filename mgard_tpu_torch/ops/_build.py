@@ -5,6 +5,8 @@ All kernel sources (``mgard_tpu_torch/csrc/*.cu``) have a plain
 source, all started at once, and links them into one shared library,
 loaded with :mod:`ctypes`.  No PyTorch headers, no
 ``torch.utils.cpp_extension``, no ``ninja``: the build takes seconds.
+The host codecs of ``native/`` (Huffman, LZ4) are built the same way,
+one ``g++`` call each (:func:`host_library`).
 
 The library goes into ``mgard_tpu_torch/_build/`` (git-ignored) at first
 use and is rebuilt whenever a source is newer than it.  A failed build
@@ -26,6 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libmgard_tpu_torch.so"
+NATIVE = _PKG.parent / "native"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lib = None
@@ -132,6 +135,28 @@ def build() -> Path:
     os.replace(tmp, LIB_PATH)
     build_seconds = time.perf_counter() - t0
     return LIB_PATH
+
+
+def host_library(name: str) -> Path:
+    """``native/<name>.cpp`` built with one ``g++ -O3 -shared`` call into
+    ``_build/lib<name>.so`` when that is missing or older than the
+    source; a failed build raises.  ``native/*.so`` is neither read nor
+    written."""
+    src = NATIVE / f"{name}.cpp"
+    out = BUILD_DIR / f"lib{name}.so"
+    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o",
+           str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{' '.join(cmd)} ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def lib():

@@ -47,7 +47,7 @@ __all__ = ["encode_segments", "decode_segments", "max_words_segments",
            "encode64", "decode64", "max_words", "max_words64",
            "num_chunks", "num_chunks_tiled", "num_chunks64",
            "num_chunks64_tiled", "GROUP", "CHUNK_GROUPS", "CHUNK_TILE",
-           "WIDE_CHUNK_GROUPS"]
+           "WIDE_CHUNK_GROUPS", "transpose32", "transpose32_mid"]
 
 # Groups per chunk == words per emitted plane row; a wire parameter that
 # containers record (flags&8 of the header).
@@ -62,6 +62,20 @@ WIDE_CHUNK_GROUPS = 2048
 _U32 = 0xFFFFFFFF
 _I32_MIN = -2 ** 31
 _I64_MIN = -2 ** 63
+
+
+def transpose32(x: torch.Tensor) -> torch.Tensor:
+    """Transpose a batch of 32x32 bit matrices (``bitplane.py:120``):
+    ``x`` (32, G) of int32 bit patterns; bit j of row i of group g becomes
+    bit i of row j.  An involution.  Plain PyTorch, as the JAX package's
+    is XLA."""
+    return butterfly(x, 0)
+
+
+def transpose32_mid(x: torch.Tensor) -> torch.Tensor:
+    """The bit transpose along axis 1 of a (C, 32, W) int32 array: bit i
+    of out[c, b, w] = bit b of x[c, i, w] (``bitplane.py:157``)."""
+    return butterfly(x, 1)
 
 
 def num_chunks(n: int, C: int = 0) -> int:

@@ -91,8 +91,11 @@ _SHIFTS = (16, 8, 4, 2, 1)
 
 def butterfly(x: torch.Tensor, dim: int) -> torch.Tensor:
     """32x32 bit-matrix transpose along a length-32 ``dim`` of int64
-    words in [0, 2^32): bit i of out[.., b, ..] = bit b of x[.., i, ..].
-    The five masked shift/xor rounds of ``bitplane._butterfly``."""
+    words in [0, 2^32), or of int32 bit patterns: bit i of out[.., b, ..]
+    = bit b of x[.., i, ..].  The five masked shift/xor rounds of
+    ``bitplane._butterfly``; each mask clears the bits that an arithmetic
+    right shift of an int32 brings in, so the shifts act as logical
+    ones."""
     rows = list(x.unbind(dim))
     for mask, sh in zip(_MASKS, _SHIFTS):
         for i in range(GROUP):

@@ -81,19 +81,19 @@ def test_status_errors():
 
 
 def test_unported_branches_raise():
+    """What the port lacks raises, naming its ROADMAP entry: reference
+    MGARD buffers.  Every lossless and ROI containers are ported (their
+    cross-decodes are in test_torch_hostcodec.py and test_torch_roi.py),
+    so those headers with empty sections are refused as corrupted."""
     v = _field((33, 33, 33))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, device="cpu",      # a host lossless
-                    config=mt.Config(lossless=mt.Lossless.HUFFMAN_ZLIB))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.compress(v, 1e-3, device="cpu",      # a zstd second stage
-                    config=mt.Config(lossless=mt.Lossless.BITPLANE_ZSTD))
+        mt.decompress(b"MGARD" + bytes(64), device="cpu")
     huffman = tfmt.write_container(tfmt.Header(
         dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
         error_mode=0, s=math.inf, tolerance=1e-3, norm=1.0,
         lossless=int(JLossless.HUFFMAN_ZLIB), n_levels=5,
         section_sizes=(), layout=3, chunk_groups=4096), [b""])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="corrupted"):
         mt.decompress(huffman, device="cpu")
     roi = tfmt.write_container(tfmt.Header(
         dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
@@ -101,7 +101,7 @@ def test_unported_branches_raise():
         lossless=int(JLossless.BITPLANE_GROUP), n_levels=5,
         section_sizes=(), layout=3, chunk_groups=4096, roi_block=8),
         [b"", b""])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="corrupted"):
         mt.decompress(roi, device="cpu")         # ROI containers
 
 
@@ -151,10 +151,14 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|zstandard|mgard_tpu)\b",
-                         re.M)
+    """No import of jax or mgard_tpu anywhere in the port or chip_smoke.py,
+    and no module-level import of zstandard: a zstd stage imports it
+    where it runs, so that a machine without it fails there alone."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|mgard_tpu)\b", re.M)
+    toplevel = re.compile(r"^(import|from)\s+zstandard\b", re.M)
     files = sorted((ROOT / "mgard_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
+        assert not toplevel.search(f.read_text()), f
