@@ -13,7 +13,8 @@ on the flat PYRAMID stream; the default per-group codec at 128^3; the
 512^3 field as float64; then with s-norm error control; then the FINE
 and LEVEL_BLOCKS layouts and the SINGLEDIM and HYBRID decompositions;
 then the host losslesses and second stages, MGARD-ROI, MGARD-QOI and
-MDR; then long dims, over 4096 nodes, whose correction solves with S1;
+MDR; then reference MGARD buffers (MGARD-X at 513^3, the CPU format,
+MDR-X directories) and the two ZFP codecs; then long dims, over 4096 nodes, whose correction solves with S1;
 then a 1024^3 field split into blocks), checks every result, and prints
 the kernels' JSON line, the card's line and a last line ``{"ok": true,
 "device": {...}}``.  Any failure raises and the
@@ -22,7 +23,8 @@ doing anything.
 
 Phases (each prints its wall time):
   1. setup     - card name and power limit, versions, the kernel build
-                 and, beside it, the host codecs' (one g++ each);
+                 and, beside it, the host codecs' (one g++ each) and the
+                 main field (host numpy; the "data" step waits for it);
   2. kernels   - K1-K10 against their plain versions, on the main path's
                  own inputs (the decomposition of the field; K5 and K7 on
                  the field at the finest level, K8 on K7's output, K6 and
@@ -33,6 +35,8 @@ Phases (each prints its wall time):
                  one-segment wrapper once per segment and the largest
                  segment alone) and with a NaN and an overflow planted in
                  two segments, status 2 and 1 on exactly their chunks;
+                 K4 timed in 21 turns of its 10 launches (median and
+                 quartiles);
                  K8 o K7 bit-identical to K5 and K10 o K9 to K6; K12 and
                  K11 on
                  the flat PYRAMID stream of the field (with an int32
@@ -106,37 +110,86 @@ Phases (each prints its wall time):
                  bit for bit against its plain version at SINGLEDIM's
                  top-level solves (257, 512, 512) dim 0, (257, 257, 512)
                  dim 1, (257, 257, 257) dim 2;
- 13. host codecs - the 512^3 field with HUFFMAN_ZLIB and NONE (the flat
+ 13. host codecs - the 512^3 field with NONE and HUFFMAN_ZLIB (the flat
                  PYRAMID stream coded on the host: the flat path's
-                 transform kernels, no codec kernel; beside the API round
-                 trip, on a second host thread, the Huffman, zlib and
-                 NONE stages by the host clock on _quantized_flat's
-                 stream from the card: the container's section their
-                 encode of it, the stream they decode from it that
-                 stream bit for bit; device encode/decode by CUDA events;
-                 the encode's peak within the planner's factor),
-                 BITPLANE_LZ4 (the main path's launches;
-                 each LZ4-decompressed section the unstaged container's
-                 byte for byte; LZ4 by the host clock), and the zstd
-                 losslesses: a round trip where zstandard is installed,
-                 else ModuleNotFoundError from each (printed which);
- 14. roi       - compress_roi at 512^3 (threshold 0.5, block 8) and the
+                 transform kernels, no codec kernel), each API round
+                 trip a HostLeg (a host thread whose card work is held
+                 to fixed points, counted apart: the encode until its
+                 stream is on the host, the decode's last card part
+                 after the main thread lets it run); the host stages
+                 recorded inside the round trip by the host clock (the
+                 compressor's host encode and decode, and the Huffman and
+                 zlib calls within them): the API's host encode took
+                 _quantized_flat's stream from the card and gave the
+                 container's section, its host decode gave that stream
+                 back bit for bit.  NONE runs through; then BITPLANE_LZ4
+                 (the main path's launches; each LZ4-decompressed section
+                 the unstaged container's byte for byte; LZ4 by the host
+                 clock) and the zstd losslesses (a round trip where
+                 zstandard is installed, else ModuleNotFoundError from
+                 each, printed which); then HUFFMAN_ZLIB starts, and its
+                 host work (~25 s) goes on beside phases 14-19;
+ 14. CPU format - the reference CPU format (CPU_HUFFMAN_ZLIB) at 129^3,
+                 s = inf and s = 0: K1/K5/K6 bit for bit against their
+                 plain versions on the encode's inputs, then the two
+                 compresses, each a HostLeg, K1 and K5 as their gates
+                 admit in each encode's card part (``_cpu_quantized``),
+                 counted until both streams are on the host; their zlib
+                 level 9 (host work alone) runs on beside phases 15-20;
+ 15. roi       - compress_roi at 512^3 (threshold 0.5, block 8) and the
                  API's decompress: the flat path's transform kernels,
                  error <= tol on ROI and buffer nodes and <= scalar * tol
                  elsewhere, the ratio against the per-group container's;
- 15. qoi       - a box-mean functional: its component norms on the card
+ 16. qoi       - a box-mean functional: its component norms on the card
                  against the port's CPU ones at 65^3 (rtol 1e-9); at
                  512^3 S1 3 (L + 1) times, compress_qoi at s = 0 with
                  |Q(u) - Q(u')| <= 1e-4 and the main path's K1/K5/K6;
                  the norms again with each S1 call (float64, at every
                  level's shape) bit for bit against its plain version;
- 16. mdr       - mdr_refactor at 512^3 (LOSSLESS_NONE; K1 as the main
+ 17. mdr       - mdr_refactor at 512^3 (LOSSLESS_NONE; K1 as the main
                  path, K5 once), then at 1e-2, 1e-3 and 1e-4 each of the
                  greedy, inorder and roundrobin requests: its bytes, a
                  reconstruction within the tolerance (K6 once), its time;
                  incremental 1e-2 then 1e-4 equal to a one-shot 1e-4
                  reconstruction bit for bit;
- 17. long dims - dims over 4096 nodes take the per-dim transform, its
+ 18. interop   - reference MGARD buffers (``io/mgard_compat.py``), each
+                 round trip with its own launch counters: MGARD-X at 513^3
+                 (the 2^9 + 1 grid its users write; bench.py's kind of
+                 field built on the card), ABS 1e-3, X_HUFFMAN: error,
+                 ratio, API times, K1 and K5 as their gates admit in the
+                 encode (K1 at levels 9-7) and bit for bit against their
+                 plain versions on its inputs (level_kernel_errs),
+                 nothing in the float64 decode; its stages one by one
+                 (quantized stream, host codebook, Huffman blob = the
+                 container's byte for byte, its decode on the card = the
+                 stream bit for bit); REL 1e-4 at 513^3; s = 0 at 129^3
+                 (RMS of the error within the tolerance and within
+                 1e-3, not a raw fallback, the card's decode the CPU's
+                 of the same buffer to a float32 rounding); the zstd writers
+                 and zstd goldens raise ModuleNotFoundError without
+                 zstandard; the 17x17 X golden and the three zfp_stream
+                 goldens (byte for byte, with zfp_stream's time a block);
+                 a synthetic mdr-x directory of the 129^3 field in
+                 float64 (``tests/mdrx_fixture.py``): all planes
+                 within 1e-12 of the written coefficients' float64
+                 recompose on the CPU, plane counts rising as the
+                 tolerance tightens;
+ 19. zfp       - the native fixed-rate codec (``models/zfp.py``) at 512^3,
+                 rates 8 and 16: size exactly rate bits a value plus the
+                 side bytes, error, API and device times (CUDA events), no
+                 kernel launched; on a 128^3 crop the card's stream is the
+                 CPU's byte for byte;
+ 20. HUFFMAN_ZLIB - waits for phase 13's round trip, runs its decode's
+                 card part: error, ratio, launches (the encode's and the
+                 decode's card parts), the host stages, the checks above;
+                 device encode/decode by CUDA events; the encode's peak
+                 within the planner's factor;
+ 21. CPU format decode - waits for phase 14's compresses and decodes
+                 them, each with its own launch counters (K6 as its gate
+                 admits in each float32 decode): max|v - out| <= 1e-3 at
+                 s = inf and ||v - out||_0 <= 1e-3 by the port's norms at
+                 s = 0, zlib level 9's time;
+ 22. long dims - dims over 4096 nodes take the per-dim transform, its
                  correction solving with S1 (``csrc/tridiag.cu``); each
                  case with its own launch counters, bench.py's kind of
                  field built in float32 on the card from seed 0, ABS
@@ -145,7 +198,8 @@ Phases (each prints its wall time):
                  (a) a 1-D series of 280,953,867 values (one HACC
                  field of SDRBench; L = 29, 30 segments): the hierarchy's
                  build time (host work alone, built on a host thread
-                 while phases 13-16 run), the round trip, S1 twice a per-dim level,
+                 while phases 13-21 run), the round trip, S1 twice a
+                 per-dim level,
                  device encode/decode and S1's share of them, S1 per
                  level and alone on the top level's 2^28 + 1 nodes, S1
                  bit for bit against its plain version on solves of at
@@ -173,7 +227,7 @@ Phases (each prints its wall time):
                  cross-decoded with the default both ways, device times
                  in turns with the matmul correction, S1 bit for bit
                  against its plain version at every level (9 to 1);
- 18. multi-block - a 1024^3 float32 field (bench.py's kind, built in
+ 23. multi-block - a 1024^3 float32 field (bench.py's kind, built in
                  float32 on the card slab by slab, its noise from a CUDA
                  generator), which the default Config splits into two
                  (512, 1024, 1024) slabs along dim 0: compress and
@@ -196,7 +250,7 @@ Phases (each prints its wall time):
                  a (16, 4096, 4096) field with adjust_shape, stored as
                  (256, 256, 4096) and returned in its own shape, K1-K6
                  bit for bit against their plain versions at that shape;
- 19. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 24. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
                  K5/K6 with K13): the pyramids agree and each container
@@ -205,7 +259,7 @@ Phases (each prints its wall time):
                  (s = 1), segmented, each decode on the card through K11;
                  at 65^3 HYBRID with two local levels and on a nonuniform
                  grid, LEVEL_BLOCKS and HYBRID at s = 0, FINE in float64;
- 20. summary   - the kernels line (S1 after K1-K17), the card line, the
+ 25. summary   - the kernels line (S1 after K1-K17), the card line, the
                  ok line.
 """
 
@@ -213,20 +267,26 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import resource
 import struct
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+T_START = time.perf_counter()
 SHAPE = (512, 512, 512)
 TOL = 1e-3
 SEED = 0
+# Turns of K4's timing (each the 10 launches of one decode): the median
+# and quartiles settle its figure
+K4_TURNS = 21
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside
 # the tensor cores (the rate the scalar integer and float work of these
 # kernels is counted against).
@@ -339,6 +399,24 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turn_ms(fn, turns: int) -> np.ndarray:
+    """The ms of each of ``turns`` calls of ``fn`` (after one warm-up), by
+    CUDA events recorded between them.  The card first sleeps while the
+    host queues every call, so that the events time the card's work and
+    not the host's launch gaps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(turns + 1)]
+    torch.cuda._sleep(100_000_000)         # ~50 ms of card clock cycles
+    ev[0].record()
+    for e in ev[1:]:
+        fn()
+        e.record()
+    ev[-1].synchronize()
+    return np.asarray([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -487,9 +565,14 @@ def check_kernels(hier, v):
     err = max(max_abs_diff(g, w) for g, w in
               zip(k4(bk.bp_decode_condense_f32),
                   k4(bk.bp_decode_condense_f32_plain)))
+    k4_ms = turn_ms(lambda: k4(bk.bp_decode_condense_f32), K4_TURNS)
+    q1, med, q3 = np.percentile(k4_ms, [25, 50, 75])
+    log(f"K4 over {K4_TURNS} turns of its {len(pyr)} launches (CUDA events "
+        f"between turns, the queue kept full): median {med:.4f} ms, "
+        f"quartiles {q1:.4f} / {q3:.4f} ms (min {k4_ms.min():.4f}, max "
+        f"{k4_ms.max():.4f})")
     add("bp_decode_condense_f32", "mgard_tpu_torch/csrc/bp_codec.cu",
-        "mgard_tpu/ops/pallas_kernels.py:621", err,
-        cuda_ms(lambda: k4(bk.bp_decode_condense_f32), 5),
+        "mgard_tpu/ops/pallas_kernels.py:621", err, float(med),
         cuda_ms(lambda: k4(bk.bp_decode_condense_f32_plain), 2),
         4 * rows * C + 4 * nvals + 8 * sum(ncs),
         (OPS_BUTTERFLY + OPS_DEQUANT) * nvals)
@@ -1724,91 +1807,186 @@ def host_timed(fn, *args, **kwargs):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def host_stages(comp, flat):
-    """The host lossless's stages on the int stream ``flat``, one after
-    another, each by the host clock: HUFFMAN_ZLIB's Huffman encode, zlib
-    (level 6) behind the ``<QQQ>`` preamble, zlib's decompress and the
-    Huffman decode; NONE's host encode and decode.  Returns (the
-    section, the stream decoded from it, {stage: ms})."""
+class HostLeg:
+    """One call of ``fn`` on a host thread of its own, whose card work is
+    held to fixed points so that it never shares the card with the main
+    thread's phases or their launch counts.  :meth:`start` returns once
+    the thread's call of ``after`` (an ``(owner, name)``) has returned,
+    which ends the call's first card part, with the launches made until
+    then; the host work that follows runs beside the main thread.  With
+    ``before``, the thread stops once its call of ``before`` has
+    returned, until :meth:`finish` sets the launch counters to 0 and lets
+    it run its last card part.  ``record`` lists ``(owner, name)`` whose
+    calls by the thread are kept in ``calls`` ({name: [(args, result,
+    ms)]}).  Calls from other threads pass through."""
+
+    def __init__(self, fn, after, before=None, record=()):
+        self.fn, self.after, self.before, self.record = fn, after, before, \
+            record
+        self.card_done, self.host_done, self.go = (threading.Event()
+                                                   for _ in range(3))
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.calls = {name: [] for _, name in record}
+        self.result = self.error = self.t_held = self.t_go = None
+        self._saved = []
+
+    def _run(self):
+        try:
+            self.result = self.fn()
+        except BaseException as e:
+            self.error = e
+        finally:
+            self.card_done.set()
+            self.host_done.set()
+
+    def _wrap(self, owner, name, rec=False, event=None, hold=False):
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+
+        def wrapped(*args, **kwargs):
+            if threading.current_thread() is not self.thread:
+                return fn(*args, **kwargs)
+            out, ms = host_timed(fn, *args, **kwargs)
+            if rec:
+                self.calls[name].append((args, out, ms))
+            if event is not None:
+                self.t_held = time.perf_counter()
+                event.set()
+            if hold:
+                self.go.wait()
+            return out
+        setattr(owner, name, wrapped)
+
+    def _restore(self, keep=0):
+        while len(self._saved) > keep:
+            owner, name, fn = self._saved.pop()
+            setattr(owner, name, fn)
+
+    def start(self) -> dict:
+        from mgard_tpu_torch.ops import _build
+        for owner, name in self.record:
+            self._wrap(owner, name, rec=True)
+        if self.before:
+            self._wrap(*self.before, event=self.host_done, hold=True)
+        kept = len(self._saved)
+        self._wrap(*self.after, event=self.card_done)
+        _build.reset_launches()
+        try:
+            self.thread.start()
+            self.card_done.wait()
+        finally:
+            self._restore(kept)     # the thread has passed ``after``
+        counts = _build.launch_counts()
+        if self.error is not None:
+            self.finish()
+        return counts
+
+    def finish(self):
+        """(fn's result, the launches of the last card part, seconds
+        waited here for the host work)."""
+        from mgard_tpu_torch.ops import _build
+        t0 = time.perf_counter()
+        self.host_done.wait()
+        waited = time.perf_counter() - t0
+        _build.reset_launches()
+        self.t_go = time.perf_counter()
+        self.go.set()
+        self.thread.join()
+        counts = _build.launch_counts()
+        self._restore()
+        if self.error is not None:
+            raise self.error
+        return self.result, counts, waited
+
+
+def host_lossless_start(v_host, lossless):
+    """The API round trip of the main field with a host lossless as a
+    :class:`HostLeg`: started here, its launches counted until the
+    encode's stream is on the host (``HostStream.wait``); the host encode
+    and decode (and, for HUFFMAN_ZLIB, the Huffman and zlib calls within
+    them) recorded by the host clock; held before the decode's card
+    part.  Returns (the leg, the encode's launches)."""
     import mgard_tpu_torch as mt
-    from mgard_tpu_torch.io.huffman_native import (huffman_decode,
-                                                   huffman_encode)
-
-    ms = {}
-    if comp.lossless == mt.Lossless.NONE:
-        section, ms["NONE encode"] = host_timed(comp._host_lossless_encode,
-                                                flat)
-        back, ms["NONE decode"] = host_timed(comp._host_lossless_decode,
-                                             section, comp.lossless)
-        return section, back, ms
-    (tree, hit, bits, miss), ms["huffman_encode"] = host_timed(
-        huffman_encode, flat.astype(np.int64))
-    packed, ms["zlib.compress"] = host_timed(zlib.compress,
-                                             tree + hit + miss, 6)
-    section = struct.pack("<QQQ", len(tree), bits, len(miss)) + packed
-    inner, ms["zlib.decompress"] = host_timed(zlib.decompress, packed)
-    t, h = len(tree), bits // 8 + 4
-    back, ms["huffman_decode"] = host_timed(
-        huffman_decode, inner[:t], inner[t:t + h], bits, inner[t + h:],
-        flat.size)
-    return section, back, ms
-
-
-def host_lossless_path(label, v_host, lossless, want, device_times):
-    """One API round trip with a host lossless, with the launch counters
-    around it: error, ratio, launches (the flat path's transform kernels,
-    no codec kernel).  Beside it, on a second host thread, the host
-    stages (:func:`host_stages`) on the int stream of ``_quantized_flat``
-    on the card: the API container's section must be their encode of
-    that stream, and the stream they decode from it that stream bit for
-    bit.  With ``device_times`` the device encode (to the int stream)
-    and decode (from it) by CUDA events and the encode's peak memory
-    (the same device work for every host lossless)."""
-    import torch
-    import mgard_tpu_torch as mt
-    from mgard_tpu_torch.io import format as fmt
-    from mgard_tpu_torch.ops import _build
-    from mgard_tpu_torch.ops.tridiag import table_scope
+    from mgard_tpu_torch.io import huffman_native
+    from mgard_tpu_torch.models.compressor import Compressor, HostStream
 
     config = mt.Config(lossless=lossless)
-    comp = mt.get_compressor(v_host.shape, v_host.dtype, config=config)
-    v = torch.from_numpy(v_host).cuda()
-    flat, status = comp.encode_device(v, TOL)
-    flat_host = flat.cpu().numpy()
-    _build.reset_launches()
-    with ThreadPoolExecutor(1) as pool:
-        stages = pool.submit(host_stages, comp, flat_host)
+    record = [(Compressor, "_host_lossless_encode"),
+              (Compressor, "_host_lossless_decode")]
+    if lossless != mt.Lossless.NONE:
+        record += [(huffman_native, "huffman_encode"), (zlib, "compress"),
+                   (zlib, "decompress"), (huffman_native, "huffman_decode")]
+
+    def round_trip():
         t0 = time.perf_counter()
         buf = mt.compress(v_host, TOL, config=config)
         t1 = time.perf_counter()
-        out = mt.decompress(buf)
-        t2 = time.perf_counter()
-        counts = _build.launch_counts()
-        section, back, ms = stages.result()
+        return buf, mt.decompress(buf), t0, t1, time.perf_counter()
+    leg = HostLeg(round_trip, after=(HostStream, "wait"),
+                  before=(Compressor, "_host_lossless_decode"),
+                  record=record)
+    return leg, leg.start()
+
+
+def host_lossless_finish(label, v_host, lossless, want, started,
+                         device_times):
+    """Finish :func:`host_lossless_start`'s round trip: error, ratio,
+    launches (the encode's and the decode's card parts together: the
+    flat path's transform kernels, no codec kernel).  The stream the
+    API's host encode took must be ``_quantized_flat``'s on the card
+    (from ``encode_device``), its result the container's section, and
+    the stream the API's host decode gave back that stream bit for bit.
+    With ``device_times`` the device encode (to the int stream) and
+    decode (from it) by CUDA events and the encode's peak memory (the
+    same device work for every host lossless)."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops.tridiag import table_scope
+
+    leg, enc_counts = started
+    (buf, out, t0, t1, t2), dec_counts, waited = leg.finish()
+    counts = {k: enc_counts[k] + dec_counts[k] for k in enc_counts}
+    dec_ms = 1e3 * (leg.t_held - t1 + t2 - leg.t_go)
     header, sections = fmt.read_container(buf)
     err = card_max_err(v_host, out)
     del out
+    calls = leg.calls
+    (enc_args, section, _), = calls["_host_lossless_encode"]
+    (dec_args, back, _), = calls["_host_lossless_decode"]
+    names = {"_host_lossless_encode": f"{lossless.name} host encode",
+             "_host_lossless_decode": f"{lossless.name} host decode"}
+    ms = {names.get(k, k): round(sum(c[2] for c in x), 3)
+          for k, x in calls.items()}
     log(f"{label}: {len(buf)} bytes, ratio {v_host.nbytes / len(buf)!r}, "
         f"max|v - out| = {err!r} (tolerance {TOL}); API compress "
-        f"{1e3 * (t1 - t0):.3f} ms, decompress {1e3 * (t2 - t1):.3f} ms; "
-        f"host stages (ms) { {k: round(x, 3) for k, x in ms.items()} } "
-        f"(host clock, on a second thread beside the API round trip)")
+        f"{1e3 * (t1 - t0):.3f} ms, decompress {dec_ms:.3f} ms (its hold "
+        f"before the card part left out; {waited:.3f} s waited here for "
+        f"the host work); host stages (ms) {ms} (host clock, recorded "
+        f"inside the API round trip; each host encode and decode includes "
+        f"the stages listed after it)")
     expect_launches(label, counts, want)
     if header.lossless != int(lossless) or len(sections) != 1 \
             or not err <= TOL:
         raise AssertionError(f"{label}: lossless {header.lossless}, "
                              f"{len(sections)} sections, error {err}")
-    same_section = section == sections[0]
+    comp = mt.get_compressor(v_host.shape, v_host.dtype,
+                             config=mt.Config(lossless=lossless))
+    v = torch.from_numpy(v_host).cuda()
+    flat, status = comp.encode_device(v, TOL)
+    flat_host = flat.cpu().numpy()
+    same_input = bool(np.array_equal(enc_args[1], flat_host))
+    same_section = section == sections[0] and dec_args[1] == sections[0]
     same_stream = bool(np.array_equal(back, flat_host))
     log(f"{label}: int stream {flat_host.dtype} x {flat_host.size}, status "
-        f"{int(status)}; the container's section the host stages' encode "
-        f"of _quantized_flat's stream on the card: {same_section}; the "
-        f"stream they decode from it that stream bit for bit: "
-        f"{same_stream}")
-    if not (same_section and same_stream):
+        f"{int(status)}; the API's host encode took _quantized_flat's "
+        f"stream on the card: {same_input}, and gave the container's "
+        f"section: {same_section}; the API's host decode gave that stream "
+        f"back bit for bit: {same_stream}")
+    if not (same_input and same_section and same_stream):
         raise AssertionError(f"{label}: the host codec's section or "
                              "stream differs")
-    del flat_host, back, section
+    del flat_host, back, section, enc_args, dec_args, calls, leg
     if not device_times:
         del v, flat
         return len(buf)
@@ -1817,9 +1995,9 @@ def host_lossless_path(label, v_host, lossless, want, device_times):
         with table_scope():
             return comp._flat_to_array(flat, TOL)
     enc_ms = cuda_ms(lambda: comp.encode_device(v, TOL), 3)
-    dec_ms = cuda_ms(decode, 3)
+    dec_dev_ms = cuda_ms(decode, 3)
     log(f"{label}: device encode (to the int stream) {enc_ms:.3f} ms, "
-        f"device decode (from it) {dec_ms:.3f} ms (CUDA events)")
+        f"device decode (from it) {dec_dev_ms:.3f} ms (CUDA events)")
     encode_peak(label, comp, v, TOL)
     del v, flat
     torch.cuda.empty_cache()
@@ -1885,18 +2063,36 @@ def zstd_paths(v_host):
 
 
 def host_codec_paths(v_host, main_buf, main_counts, flat_counts):
-    """The host losslesses and second stages (see the module docstring)."""
+    """The host losslesses and second stages (see the module docstring),
+    HUFFMAN_ZLIB's round trip last: it is started here and its host work
+    goes on beside the phases that follow; returns (the container sizes,
+    its started leg) for :func:`huffman_zlib_finish`."""
     import mgard_tpu_torch as mt
 
     want = transform_counts(flat_counts)
     sizes = {"BITPLANE": len(main_buf)}
-    for lossless in (mt.Lossless.HUFFMAN_ZLIB, mt.Lossless.NONE):
-        sizes[lossless.name] = host_lossless_path(
-            f"{lossless.name} path", v_host, lossless, want,
-            device_times=lossless == mt.Lossless.HUFFMAN_ZLIB)
+    lossless = mt.Lossless.NONE
+    sizes[lossless.name] = host_lossless_finish(
+        f"{lossless.name} path", v_host, lossless, want,
+        host_lossless_start(v_host, lossless), device_times=False)
     sizes["BITPLANE_LZ4"] = lz4_path(v_host, main_buf, main_counts)
     zstd = zstd_paths(v_host)
-    log(f"host codecs: container bytes {sizes}; zstd {zstd}")
+    log(f"host codecs: zstd {zstd}; HUFFMAN_ZLIB's round trip started, its "
+        f"host work (Huffman, zlib) goes on beside the phases that follow")
+    return sizes, host_lossless_start(v_host, mt.Lossless.HUFFMAN_ZLIB)
+
+
+def huffman_zlib_finish(v_host, flat_counts, started):
+    """Phase "host codecs, HUFFMAN_ZLIB": finish the round trip that
+    :func:`host_codec_paths` started."""
+    import mgard_tpu_torch as mt
+
+    sizes, leg = started
+    lossless = mt.Lossless.HUFFMAN_ZLIB
+    sizes[lossless.name] = host_lossless_finish(
+        f"{lossless.name} path", v_host, lossless,
+        transform_counts(flat_counts), leg, device_times=True)
+    log(f"host codecs: container bytes {sizes}")
 
 
 def roi_path(v_host, flat_counts):
@@ -2987,7 +3183,7 @@ def long_series(prebuilt):
     nblocks = api.plan_blocks(shape, np.float32, mt.Config(), "cuda")
     log(f"long series {shape} float32, {v_host.nbytes} bytes: hierarchy "
         f"built in {build_s:.3f} s (host, on a thread beside phases "
-        f"13-16; {t1 - t0:.3f} s waited for it here), the compressor on "
+        f"13-21; {t1 - t0:.3f} s waited for it here), the compressor on "
         f"the cached hierarchy {t2 - t1:.3f} s, L = {hier.L}, {hier.L + 1} "
         f"segments, {nblocks} block(s), per-dim levels {len(pairs)}")
     host_memory("long series hierarchy built")
@@ -3336,6 +3532,495 @@ def reference_check(shape, seed, tol=1e-3, fused=True, lpk=False):
         raise AssertionError(f"cross-decode error {max(errs)} > {tol}")
 
 
+
+# ---------------------------------------------------------------------------
+# Interop and ZFP (phases "interop" and "zfp")
+# ---------------------------------------------------------------------------
+
+X_SHAPE = (513, 513, 513)        # 2^9 + 1: the X level walk is dyadic
+X_SMALL = (129, 129, 129)        # CPU format, X at s = 0, MDR-X
+X_REL_TOL = 1e-4
+# The X s-norm quanta at 129^3 (2 tol / sqrt(dof) times the level volume)
+# are so fine that below ~0.5 the writer stores the subdomain raw; the RMS
+# of the error at 1.0 is ~2.1e-4 (H100 runs), and a quantum or a
+# dequantization off by a factor of two gives errors of the field's size
+X_SNORM_TOL = 1.0
+X_SNORM_RMS = 1e-3
+MDRX_TOLS = (1e-2, 1e-3, 1e-4)
+MDRX_RTOL = 1e-12
+ZFP_RATES = (8, 16)
+ZFP_CROP = (128, 128, 128)
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+
+
+def synced_ms(fn, *args, **kwargs):
+    """(result, ms) of one call by the host clock, the card synchronized
+    before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def gate_counts(errs) -> dict:
+    """The launches that ``level_kernel_errs``'s walk shows a path's
+    encode (K1, K5) and a float32 decode (K6) make."""
+    return {"extract_coarse_3d": len(errs["extract_coarse_3d"]),
+            "gpk_detail": len(errs["gpk_detail"]),
+            "gpk_prolong_add": len(errs["gpk_detail"])}
+
+
+def nonzero(counts) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def no_launches(label, counts):
+    """Raise unless no kernel launched (a path in float64, or with no
+    kernel of its own)."""
+    launched = nonzero(counts)
+    log(f"{label}: launches {launched or 'none'} (expected none)")
+    if launched:
+        raise AssertionError(f"{label}: kernels launched: {launched}")
+
+
+def counted_ms(fn, *args, **kwargs):
+    """(result, launch counts, ms by the host clock) of one call, the
+    counters set to 0 just before and read just after."""
+    from mgard_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    out, ms = synced_ms(fn, *args, **kwargs)
+    return out, _build.launch_counts(), ms
+
+
+def x_abs_path(v_host):
+    """MGARD-X at X_SHAPE, ABS TOL, X_HUFFMAN: the round trip through
+    compress_mgard_x and decompress with its launches (K1 and K5 where
+    their gates admit in the encode, K1-K6 bit for bit against their
+    plain versions on this path's inputs; nothing in the float64
+    decode), then its stages one by one: the quantized stream, the host
+    codebook, the Huffman blob (the container's byte for byte) and its
+    decode on the card (the stream bit for bit)."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import mgard_compat as mc
+
+    buf, enc_counts, enc_ms = counted_ms(mc.compress_mgard_x, v_host, TOL,
+                                         zstd=False)
+    out, dec_counts, dec_ms = counted_ms(mt.decompress, buf)
+    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    del out
+    log(f"X ABS {X_SHAPE}: {len(buf)} bytes, ratio "
+        f"{v_host.nbytes / len(buf)!r}, max|v - out| = {err!r} (tolerance "
+        f"{TOL}); compress_mgard_x {enc_ms:.3f} ms, decompress "
+        f"{dec_ms:.3f} ms (host clock, numpy in and out)")
+    if not err <= TOL:
+        raise AssertionError(f"X ABS: error {err} exceeds {TOL}")
+    hier, _ = mc._x_hierarchy(X_SHAPE)
+    v = torch.from_numpy(v_host).cuda()
+    errs = level_kernel_errs(hier, v)
+    del v
+    torch.cuda.empty_cache()
+    want = gate_counts(errs)
+    want["gpk_prolong_add"] = 0
+    log(f"X ABS: K1/K5/K6 against their plain versions on the encode's "
+        f"inputs (tolerance 0, one entry a level): {errs}")
+    if not errs["extract_coarse_3d"] or any(
+            y != 0.0 for x in errs.values() for y in x):
+        raise AssertionError(f"X ABS: K1/K5/K6 missing or differing: {errs}")
+    expect_launches("X ABS encode", enc_counts, want)
+    if any(enc_counts[k] for k in enc_counts if k not in want):
+        raise AssertionError(f"X ABS encode: other launches {enc_counts}")
+    no_launches("X ABS decode (float64 recompose)", dec_counts)
+
+    (q, _, _), q_ms = synced_ms(mc._x_quantized, v_host, TOL, math.inf,
+                                "abs", mc.resolve_device(None))
+    q = q.reshape(-1)
+    freq = torch.bincount(torch.where(
+        (q + 4096 < 0) | (q + 4096 >= 8192), 0, q + 4096),
+        minlength=8192).cpu().numpy()
+    t0 = time.perf_counter()
+    lengths = mc._huffman_code_lengths(freq)
+    mc._x_codebook(lengths)
+    book_ms = 1e3 * (time.perf_counter() - t0)
+    blob, enc_blob_ms = synced_ms(mc._encode_x_huffman, q)
+    _, payload = mc.read_container(buf)
+    if payload[8:] != blob or struct.unpack_from("<Q", payload)[0] != len(
+            blob):
+        raise AssertionError("X ABS: the Huffman blob is not the "
+                             "container's")
+    back, dec_blob_ms = synced_ms(mc._decode_x_huffman, blob, q.device)
+    if not torch.equal(back, q):
+        raise AssertionError("X ABS: the blob does not decode to the "
+                             "quantized stream")
+    log(f"X ABS stages (host clock, card synchronized): transform and "
+        f"quantization {q_ms:.3f} ms ({q.numel()} values, max |q| "
+        f"{int(q.abs().max())}, {int(((q < -4096) | (q >= 4096)).sum())} "
+        f"outliers); code lengths and codebook on the host {book_ms:.3f} ms"
+        f" (longest code {int(lengths.max())} bits); Huffman encode on the "
+        f"card and read-back {enc_blob_ms:.3f} ms ({len(blob)} bytes, the "
+        f"container's); Huffman decode on the card {dec_blob_ms:.3f} ms "
+        f"(the stream bit for bit); the rest of decompress (dequantize, "
+        f"float64 recompose, copies) ~{dec_ms - dec_blob_ms:.3f} ms")
+    del q, back
+    torch.cuda.empty_cache()
+    return enc_counts
+
+
+def x_rel_path(v_host, abs_counts):
+    """MGARD-X at X_SHAPE, REL X_REL_TOL (norm max|v|): the ABS encode's
+    launches, none in the decode."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import mgard_compat as mc
+
+    buf, enc_counts, enc_ms = counted_ms(mc.compress_mgard_x, v_host,
+                                         X_REL_TOL, zstd=False, mode="rel")
+    out, dec_counts, dec_ms = counted_ms(mt.decompress, buf)
+    bound = X_REL_TOL * float(np.abs(v_host).max())
+    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    header, _ = mc.read_container(buf)
+    norm = header["error_control"]["norm_of_original_data"]
+    log(f"X REL {X_SHAPE}: norm {norm!r}, {len(buf)} bytes, ratio "
+        f"{v_host.nbytes / len(buf)!r}, max|v - out| = {err!r} (bound "
+        f"{bound!r}); {enc_ms:.3f} / {dec_ms:.3f} ms; encode launches "
+        f"{nonzero(enc_counts)}")
+    if not err <= bound or nonzero(enc_counts) != nonzero(abs_counts):
+        raise AssertionError(f"X REL: error {err} (bound {bound}), encode "
+                             f"launches {nonzero(enc_counts)}")
+    no_launches("X REL decode", dec_counts)
+
+
+def x_snorm_path(v_small):
+    """MGARD-X at X_SMALL, s = 0, ABS X_SNORM_TOL: the RMS of the error
+    within the tolerance (``tests/test_mgardx_interop.py:262-279``) and
+    within X_SNORM_RMS, and the card's decode the CPU's of the same
+    buffer to one float32 rounding of max|out| (both recompose the same
+    integers in float64)."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import mgard_compat as mc
+
+    buf, enc_counts, enc_ms = counted_ms(mc.compress_mgard_x, v_small,
+                                         X_SNORM_TOL, zstd=False, s=0.0)
+    out, dec_counts, dec_ms = counted_ms(mt.decompress, buf)
+    ref, cpu_ms = host_timed(mt.decompress, buf, device="cpu")
+    rms = float(np.sqrt(np.mean((out.astype(np.float64) - v_small) ** 2)))
+    top = float(np.abs(ref).max())
+    diff = float(np.abs(out.astype(np.float64) - ref).max())
+    log(f"X s = 0 {X_SMALL}: {len(buf)} bytes, ratio "
+        f"{v_small.nbytes / len(buf)!r}, RMS of the error {rms!r} "
+        f"(tolerance {X_SNORM_TOL}, bound {X_SNORM_RMS}); {enc_ms:.3f} / "
+        f"{dec_ms:.3f} ms; encode launches {nonzero(enc_counts)}; the "
+        f"CPU's decode of the same buffer ({cpu_ms:.3f} ms): max|card - "
+        f"CPU| = {diff!r} (bound {2.0 ** -23 * top!r})")
+    if not (rms <= min(X_SNORM_TOL, X_SNORM_RMS)
+            and len(buf) < v_small.nbytes):
+        raise AssertionError(f"X s = 0: RMS error {rms}, {len(buf)} bytes "
+                             "(a raw fallback checks nothing)")
+    if not diff <= 2.0 ** -23 * top:
+        raise AssertionError(f"X s = 0: the card's decode differs from the "
+                             f"CPU's by {diff}")
+    no_launches("X s = 0 decode", dec_counts)
+
+
+def cpu_format_start(v_small):
+    """The CPU format (CPU_HUFFMAN_ZLIB) at X_SMALL, s = inf and s = 0:
+    K1/K5/K6 bit for bit against their plain versions on the encode's
+    inputs, then the two compresses, each a :class:`HostLeg` whose card
+    part ends when ``_cpu_quantized`` returns the stream to the host,
+    with the launches that the two made, checked: K1 and K5 where their
+    gates admit, in each encode.  Their zlib level 9 (the rest of each
+    compress: host work alone) goes on beside the phases that follow;
+    :func:`cpu_format_finish` waits for it.  Returns (the two legs, the
+    per-encode launches that the decodes check)."""
+    import torch
+    from mgard_tpu_torch.io import mgard_compat as mc
+
+    hier, _ = mc._x_hierarchy(X_SMALL)
+    v = torch.from_numpy(v_small).cuda()
+    errs = level_kernel_errs(hier, v)
+    del v
+    log(f"CPU format {X_SMALL}: K1/K5/K6 against their plain versions on "
+        f"the encode's inputs (tolerance 0, one entry a level): {errs}")
+    if not errs["extract_coarse_3d"] or any(
+            y != 0.0 for x in errs.values() for y in x):
+        raise AssertionError(f"CPU format: K1/K5/K6 missing or differing: "
+                             f"{errs}")
+    want = gate_counts(errs)
+
+    def compress(s):
+        def one():
+            t0 = time.perf_counter()
+            buf = mc.compress_mgard(v_small, TOL, s=s, zstd=False)
+            return buf, 1e3 * (time.perf_counter() - t0)
+        return HostLeg(one, after=(mc, "_cpu_quantized"))
+
+    # each leg's card part before the next starts
+    legs, enc_counts = [compress(s) for s in (math.inf, 0.0)], {}
+    for leg in legs:
+        for k, n in leg.start().items():
+            enc_counts[k] = enc_counts.get(k, 0) + n
+    expect_launches("CPU format, the two encodes' card parts", enc_counts, {
+        "extract_coarse_3d": 2 * want["extract_coarse_3d"],
+        "gpk_detail": 2 * want["gpk_detail"]})
+    log("CPU format: both encodes have their streams on the host; their "
+        "zlib level 9 runs on beside the phases that follow (host work "
+        "alone, nothing on the card)")
+    return legs, want
+
+
+def cpu_format_finish(v_small, started):
+    """Wait for the CPU format's two compresses (:func:`cpu_format_start`)
+    and decode them, each with its own launch counters (K6 where its gate
+    admits, in each float32 decode): max|v - out| <= TOL at s = inf,
+    ||v - out||_0 <= TOL by the port's norms at s = 0; the transform
+    and quantization of s = inf alone by the host clock."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import mgard_compat as mc
+
+    legs, want = started
+    (b_inf, ms_inf), _, w_inf = legs[0].finish()
+    (b_0, ms_0), _, w_0 = legs[1].finish()
+    waited = w_inf + w_0
+    (q, q_ms) = synced_ms(mc._cpu_quantized, v_small, TOL, math.inf, None,
+                          mc.resolve_device(None))
+    out_inf, c_inf, d_inf = counted_ms(mt.decompress, b_inf)
+    out_0, c_0, d_0 = counted_ms(mt.decompress, b_0)
+    for label, c in (("s = inf", c_inf), ("s = 0", c_0)):
+        expect_launches(f"CPU format decode {label}", c, {
+            "gpk_prolong_add": want["gpk_prolong_add"]})
+    err = float(np.abs(out_inf.astype(np.float64) - v_small).max())
+    err0 = snorm_error(mt.Hierarchy(X_SMALL), out_0, v_small, 0.0)
+    log(f"CPU format {X_SMALL}: s = inf {len(b_inf)} bytes, ratio "
+        f"{v_small.nbytes / len(b_inf)!r}, max|v - out| = {err!r}; s = 0 "
+        f"{len(b_0)} bytes, ratio {v_small.nbytes / len(b_0)!r}, ||v - "
+        f"out||_0 = {err0!r} (tolerance {TOL}); compress {ms_inf:.3f} / "
+        f"{ms_0:.3f} ms on two threads at once (beside the phases between"
+        f"; {waited:.3f} s waited for them here), of which the transform "
+        f"and quantization of s = inf alone {q_ms:.3f} ms ({q.size} int64 "
+        f"values; the rest is zlib level 9 and the container on the "
+        f"host); decompress {d_inf:.3f} / {d_0:.3f} ms")
+    if not (err <= TOL and err0 <= TOL):
+        raise AssertionError(f"CPU format: errors {err}, {err0}")
+
+
+def zstd_interop(v_small):
+    """The zstd writers and the two zstd goldens: round trips where
+    ``zstandard`` is installed, else ModuleNotFoundError from each."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import mgard_compat as mc
+
+    calls = {
+        "compress_mgard(zstd=True)": lambda: mt.decompress(
+            mc.compress_mgard(v_small, TOL, zstd=True)),
+        "compress_mgard_x(zstd=True)": lambda: mt.decompress(
+            mc.compress_mgard_x(v_small, TOL, zstd=True)),
+    }
+    for name in ("golden_33cube_f32_abs1e-3_zstd.mgardx",
+                 "golden_33cube_f32_reorder1_zstd.mgardx"):
+        with open(os.path.join(DATA_DIR, name), "rb") as f:
+            calls[name] = (lambda b: lambda: mt.decompress(b))(f.read())
+    try:
+        import zstandard  # noqa: F401
+    except ModuleNotFoundError:
+        for name, call in calls.items():
+            try:
+                call()
+            except ModuleNotFoundError as e:
+                log(f"zstd: {name} raised ModuleNotFoundError ({e}), as it "
+                    "must without zstandard")
+            else:
+                raise AssertionError(f"{name} ran without zstandard")
+        return
+    for name, call in calls.items():
+        out = call()
+        log(f"zstd: {name} ran ({out.shape})")
+
+
+def golden_checks():
+    """The reference's own buffers and streams: the X golden decodes
+    within 1e-3 of its input; the three zfp_stream goldens encode from
+    their inputs byte for byte and decode as ``tests/test_zfp_stream.py``
+    holds them (the 1-D one to its .recon bit for bit, the 2-D one within
+    1e-3, the 3-D one to its .recon on the addresses it writes, zeros
+    elsewhere), with zfp_stream's time a block."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.models import zfp_stream as Z
+
+    def data(name):
+        return os.path.join(DATA_DIR, name)
+
+    v = np.load(data("golden_17x17_f32.npy"))
+    with open(data("golden_17x17_f32_abs1e-3.mgardx"), "rb") as f:
+        out, counts, ms = counted_ms(mt.decompress, f.read())
+    err = float(np.abs(out.astype(np.float64) - v).max())
+    log(f"golden 17x17 X buffer: max|v - out| = {err!r} (bound 1e-3), "
+        f"{ms:.3f} ms")
+    if not (out.dtype == np.float32 and err <= 1e-3):
+        raise AssertionError(f"golden 17x17: {out.dtype}, error {err}")
+    no_launches("golden 17x17 decode", counts)
+
+    cases = (("golden_zfp_48_input.npy", "golden_zfp_48_f64_r16", (48,),
+              np.float64, 16),
+             ("golden_zfp_16sq_input.npy", "golden_zfp_16sq_f32_r12",
+              (16, 16), np.float32, 12),
+             ("golden_zfp_20cube_input.npy", "golden_zfp_20cube_f32_r8",
+              (20, 20, 20), np.float32, 8))
+    for inp, stem, shape, dtype, rate in cases:
+        v = np.load(data(inp))
+        with open(data(stem + ".zfps"), "rb") as f:
+            gold = f.read()
+        t0 = time.perf_counter()
+        enc = Z.zfp_encode(v, rate)
+        t1 = time.perf_counter()
+        dec = Z.zfp_decode(gold, shape, dtype, rate).reshape(-1)
+        t2 = time.perf_counter()
+        nblocks = int(np.prod([-(-n // 4) for n in shape]))
+        if enc != gold:
+            raise AssertionError(f"{stem}: the encode is not the golden "
+                                 "stream")
+        if os.path.exists(data(stem + ".recon")):
+            rec = np.fromfile(data(stem + ".recon"), dtype=dtype)
+            st = Z._strides(shape, "reference")
+            touched = np.zeros(rec.size, bool)
+            for origin, extent in Z._blocks_iter(shape):
+                touched[Z._block_addr(origin, extent, st).reshape(-1)] = True
+            ok = (np.array_equal(dec[touched], rec[touched])
+                  and not dec[~touched].any())
+            how = f"its .recon bit for bit on {int(touched.sum())} addresses"
+        else:
+            ok = float(np.abs(dec - v.reshape(-1)).max()) <= 1e-3
+            how = "within 1e-3 of its input"
+        log(f"{stem}: the encode is the golden stream byte for byte, the "
+            f"decode matches {how}: {ok}; zfp_stream "
+            f"{1e3 * (t1 - t0) / nblocks:.4f} ms a block to encode, "
+            f"{1e3 * (t2 - t1) / nblocks:.4f} to "
+            f"decode ({nblocks} blocks, host)")
+        if not ok:
+            raise AssertionError(f"{stem}: the decode does not match")
+
+
+def mdrx_path(v_small):
+    """A synthetic mdr-x directory of the float64 field at X_SMALL
+    (``tests/mdrx_fixture.py``'s ``write_mdrx``, the layout of
+    ``mgard_tpu/io/mdrx_compat.py:1-33``): the full-plane reconstruction
+    on the card against the written coefficients recomposed in float64
+    on the CPU (within MDRX_RTOL of max|ref|), then each of MDRX_TOLS,
+    plane counts never falling as the tolerance tightens."""
+    import shutil
+    import torch
+    from mgard_tpu_torch.io import mdrx_compat as mx, mgard_compat as mc
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from mdrx_fixture import write_mdrx
+
+    d = os.path.join(os.path.dirname(LOG_FILE), "mdrx_synthetic")
+    shutil.rmtree(d, ignore_errors=True)
+    v = v_small.astype(np.float64)
+    try:
+        fine, write_ms = synced_ms(write_mdrx, d, v)
+        full, counts, full_ms = counted_ms(mx.mdrx_reconstruct, d)
+        no_launches("MDR-X reconstruct (float64)", counts)
+        hier, _ = mc._x_hierarchy(X_SMALL)
+        ref = mc._x_recompose(hier, torch.from_numpy(fine)).numpy()
+        rel = float(np.abs(full - ref).max() / np.abs(ref).max())
+        log(f"MDR-X {X_SMALL} float64: written in {write_ms:.3f} ms; all "
+            f"planes read in {full_ms:.3f} ms, max|out - ref| / max|ref| = "
+            f"{rel!r} (bound {MDRX_RTOL}), max|v - out| = "
+            f"{float(np.abs(full - v).max())!r}")
+        if not rel <= MDRX_RTOL:
+            raise AssertionError(f"MDR-X: full planes off by {rel}")
+        levels = mx.read_mdrx_metadata(d).subdomains[0]
+        prev = None
+        for tol in MDRX_TOLS:
+            counts_k = mx._plane_counts(levels, len(levels[0].sizes), tol,
+                                        None)
+            out, ms = synced_ms(mx.mdrx_reconstruct, d, tol=tol)
+            err = float(np.abs(out - v).max())
+            log(f"MDR-X tol {tol}: planes {counts_k}, max|v - out| = "
+                f"{err!r}, {ms:.3f} ms")
+            if prev is not None and any(a < b for a, b in zip(counts_k,
+                                                               prev)):
+                raise AssertionError(f"MDR-X: plane counts fell: {prev} -> "
+                                     f"{counts_k}")
+            prev = counts_k
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def interop_paths(v_small):
+    """Phase "interop" (see the module docstring); ``v_small`` is the
+    field at X_SMALL."""
+    import torch
+    v513 = smooth_field_card(X_SHAPE).cpu().numpy()
+    x_rel_path(v513, x_abs_path(v513))
+    del v513
+    torch.cuda.empty_cache()
+    x_snorm_path(v_small)
+    zstd_interop(v_small)
+    golden_checks()
+    mdrx_path(v_small)
+
+
+def zfp_paths(v_host):
+    """Phase "zfp": the native fixed-rate codec at the main field's
+    shape, rates ZFP_RATES: round trip, error, size (``rate`` bits a
+    value plus the side bytes, exactly), each direction's device time by
+    CUDA events, no kernel launched; on a ZFP_CROP crop the card's
+    stream equals the CPU's byte for byte and its decode bit for bit."""
+    import torch
+    from mgard_tpu_torch.models import zfp
+
+    v = torch.from_numpy(v_host).cuda()
+    shape = v_host.shape
+    nblocks = int(np.prod(zfp._blocked(shape)))
+    errs = {}
+    for rate in ZFP_RATES:
+        buf, counts, enc_ms = counted_ms(zfp.compress_zfp, v_host, rate)
+        out, dcounts, dec_ms = counted_ms(zfp.decompress_zfp, buf)
+        no_launches(f"zfp rate {rate}", {k: counts[k] + dcounts[k]
+                                         for k in counts})
+        meta = zfp.ZfpMeta(shape, "float32", rate).pack()
+        want = len(meta) + nblocks + zfp._num_units(shape) \
+            + 4 * rate * zfp._num_groups(shape)
+        err = float(np.abs(out.astype(np.float64) - v_host).max())
+        e, m, kept = zfp._encode_impl(v, rate)
+        enc_dev = cuda_ms(lambda: zfp._encode_impl(v, rate), 3)
+        dec_dev = cuda_ms(lambda: zfp._decode_impl(e, m, kept, shape, rate,
+                                                   "float32"), 3)
+        log(f"zfp rate {rate} {shape}: {len(buf)} bytes (rate bits a value "
+            f"plus side bytes: {want}), ratio {v_host.nbytes / len(buf)!r},"
+            f" max|v - out| = {err!r} (max|v| "
+            f"{float(np.abs(v_host).max())!r}); API {enc_ms:.3f} / "
+            f"{dec_ms:.3f} ms (host clock, numpy in and out); device encode "
+            f"{enc_dev:.3f} ms, decode {dec_dev:.3f} ms (CUDA events)")
+        if len(buf) != want or not np.isfinite(out).all():
+            raise AssertionError(f"zfp rate {rate}: {len(buf)} bytes, "
+                                 f"finite {np.isfinite(out).all()}")
+        errs[rate] = err
+        del e, m, kept, out
+        crop = np.ascontiguousarray(v_host[tuple(slice(0, n)
+                                                 for n in ZFP_CROP)])
+        b_card = zfp.compress_zfp(crop, rate)
+        b_cpu = zfp.compress_zfp(crop, rate, device="cpu")
+        same = b_card == b_cpu and np.array_equal(
+            zfp.decompress_zfp(b_card).view(np.int32),
+            zfp.decompress_zfp(b_card, device="cpu").view(np.int32))
+        log(f"zfp rate {rate} {ZFP_CROP} crop: the card's stream is the "
+            f"CPU's byte for byte and its decode bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"zfp rate {rate}: card and CPU differ")
+    # the error falls as the rate rises, and at rate 16 meets
+    # tests/test_zfp.py's bound for that rate
+    top = float(np.abs(v_host).max())
+    if not (errs[8] > errs[16] and errs[16] < 1e-2 * top + 1e-4):
+        raise AssertionError(f"zfp errors {errs}")
+    del v
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3346,7 +4031,12 @@ def main() -> int:
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import _build
 
+    # the main field (host numpy) builds on a thread beside the kernels
+    field_pool = ThreadPoolExecutor(1)
+    field = field_pool.submit(smooth_field_host, SHAPE)
     with Phase("setup"):
+        log(f"script: {time.perf_counter() - T_START:.3f} s from its start "
+            f"to the setup phase (imports)")
         card = card_line()
         log(f"card: {card}")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -3369,7 +4059,11 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s in all")
 
     with Phase("data"):
-        v_host = smooth_field_host(SHAPE)
+        t0 = time.perf_counter()
+        v_host = field.result()
+        field_pool.shutdown()
+        log(f"main field built beside the setup phase; "
+            f"{time.perf_counter() - t0:.3f} s waited for it here")
         hier = mt.Hierarchy(SHAPE)
         log(f"field {SHAPE} float32, {v_host.nbytes} bytes, L = {hier.L}")
 
@@ -3412,14 +4106,20 @@ def main() -> int:
         check_singledim_s1(v_host)
 
     # The long series' hierarchy (host work alone, ~30 s at its size)
-    # builds on a host thread while phases 13-16 run; nothing frees the
-    # compressors' caches before long dims takes it.
+    # builds on a host thread while phases 13-21 run, and nothing frees
+    # the compressors' caches before long dims takes it; HUFFMAN_ZLIB's
+    # host work and the CPU format's zlib level 9 run on host threads of
+    # their own (HostLeg) from phases 13 and 14 to 20 and 21.
     mt.release_cache()
     with ThreadPoolExecutor(1) as pool:
         prebuilt = pool.submit(long_series_hierarchy)
 
         with Phase("host codecs"):
-            host_codec_paths(v_host, buf, counts, flat_counts)
+            huffman_zlib = host_codec_paths(v_host, buf, counts, flat_counts)
+
+        v_small = smooth_field_host(X_SMALL)
+        with Phase("CPU format"):
+            cpu_format = cpu_format_start(v_small)
 
         with Phase("roi"):
             roi_path(v_host, flat_counts)
@@ -3429,6 +4129,20 @@ def main() -> int:
 
         with Phase("mdr"):
             mdr_path(v_host, counts)
+
+        with Phase("interop"):
+            interop_paths(v_small)
+
+        with Phase("zfp"):
+            zfp_paths(v_host)
+
+        with Phase("HUFFMAN_ZLIB"):
+            huffman_zlib_finish(v_host, flat_counts, huffman_zlib)
+        del huffman_zlib
+
+        with Phase("CPU format decode"):
+            cpu_format_finish(v_small, cpu_format)
+        del cpu_format, v_small
 
         with Phase("long dims"):
             s1_entry = long_dims(v_host, buf, prebuilt)
@@ -3459,6 +4173,8 @@ def main() -> int:
     kernels.append(s1_entry)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"script: {time.perf_counter() - T_START:.3f} s from its start to "
+        f"the summary")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))
     print(card_line())

@@ -12,6 +12,8 @@ Both run on the GPU (``device=None`` means ``"cuda"``: every visible
 card, blocks cycling over them) unless the caller asks for the CPU or
 one device; without a card and without ``device="cpu"`` they raise.
 Containers are the JAX package's: each package decodes the other's.
+``decompress`` also reads the reference MGARD formats (the buffers of the
+reference ``mgard`` and ``mgard-x`` tools, ``io/mgard_compat.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .config import Config, Decomposition, ErrorMode, Layout, Lossless
 from .io import format as fmt
 from .models.compressor import (_HOST_LOSSLESS, Compressor,
                                 _cached_compressor, _cached_hierarchy,
-                                _corrupted, _not_ported, get_compressor,
+                                _corrupted, get_compressor,
                                 norm_of)
 from .parallel.domain import block_grid_blocks, local_abs_tol
 
@@ -101,8 +103,10 @@ def release_cache() -> None:
     the device memory and pinned host memory that PyTorch's allocators
     cache (reference mgard_x::release_cache,
     include/compress_x.hpp:159-166)."""
+    from .io import mgard_compat
     _cached_compressor.cache_clear()
     _cached_hierarchy.cache_clear()
+    mgard_compat._reference_hierarchy.cache_clear()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
         _free_pinned()
@@ -527,7 +531,8 @@ def decompress(buf: bytes, device=None) -> np.ndarray:
 def _decompress(buf, device) -> np.ndarray:
     buf = bytes(buf)
     if buf[:8] != fmt.MAGIC and buf[:5] == b"MGARD":
-        raise _not_ported("reference MGARD buffers", "queue A, item 7")
+        from .io.mgard_compat import decompress_mgard
+        return decompress_mgard(buf, device=device)
     header, sections = fmt.read_container(buf)
     if header.dd_grid is not None:
         out = _decompress_blocknd(header, sections, device)

@@ -13,6 +13,17 @@ are containers: they cross as bytes.  An MDR artifact crosses as
 ``mgard_tpu_torch.models.mdr.MDRMetadata.unpack`` and an
 ``MDReconstructor`` read as they are.  A QoI weight array crosses as a
 numpy array.
+
+Reference MGARD state crosses as it is written: a buffer of the
+reference ``mgard`` or ``mgard-x`` tools (or of either package's
+``compress_mgard``/``compress_mgard_x``) decodes with
+:func:`mgard_tpu_torch.decompress`, and an ``mdr-x`` directory with
+``mgard_tpu_torch.io.mdrx_compat.mdrx_reconstruct``.  As in the JAX
+package, the MGARD-X and MDR-X readers recompose in float64 on the
+device and cast to the buffer's dtype, for float32 buffers too (so no
+float32 kernel launches there); the CPU-format reader recomposes in the
+buffer's dtype.  A native ZFP stream (``models/zfp.py``) and a
+reference ZFP stream (``models/zfp_stream.py``) cross as bytes.
 """
 
 from __future__ import annotations

@@ -100,11 +100,6 @@ def _raise_status(status: int) -> None:
         raise ValueError("input contains NaN or Inf values")
 
 
-def _not_ported(what: str, entry: str):
-    return NotImplementedError(
-        f"{what} is not ported to mgard_tpu_torch yet (ROADMAP {entry})")
-
-
 def _corrupted(what: str):
     return ValueError(f"corrupted buffer: {what}")
 

@@ -81,12 +81,15 @@ def test_status_errors():
 
 
 def test_unported_branches_raise():
-    """What the port lacks raises, naming its ROADMAP entry: reference
-    MGARD buffers.  Every lossless and ROI containers are ported (their
-    cross-decodes are in test_torch_hostcodec.py and test_torch_roi.py),
-    so those headers with empty sections are refused as corrupted."""
+    """Malformed buffers of ported branches are refused.  Reference MGARD
+    buffers are ported (their cross-decodes are in
+    test_torch_interop.py): a zero-length header, whose CRC passes, lacks
+    its ``domain`` and is refused with a ValueError naming it (the JAX
+    package raises KeyError there).  Every lossless and ROI containers are
+    ported (test_torch_hostcodec.py, test_torch_roi.py), so those headers
+    with empty sections are refused as corrupted."""
     v = _field((33, 33, 33))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="domain"):
         mt.decompress(b"MGARD" + bytes(64), device="cpu")
     huffman = tfmt.write_container(tfmt.Header(
         dtype=np.float32, shape=v.shape, uniform=True, coordinates=None,
@@ -142,7 +145,10 @@ def test_port_imports_no_jax():
             "mgard_tpu_torch.ops.lpk_kernels, "
             "mgard_tpu_torch.ops.bp_kernels, mgard_tpu_torch.ops.quantize, "
             "mgard_tpu_torch.models.compressor, "
-            "mgard_tpu_torch.io.carry, chip_smoke; "
+            "mgard_tpu_torch.io.carry, mgard_tpu_torch.io.mgard_compat, "
+            "mgard_tpu_torch.io.mdrx_compat, mgard_tpu_torch.io.protowire, "
+            "mgard_tpu_torch.models.zfp, mgard_tpu_torch.models.zfp_stream, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mgard_tpu' "
             "or m.startswith('mgard_tpu.') or m == 'zstandard']; "
