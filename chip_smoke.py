@@ -36,7 +36,7 @@ Phases (each prints its wall time):
                  segment alone) and with a NaN and an overflow planted in
                  two segments, status 2 and 1 on exactly their chunks;
                  K4 timed in 21 turns of its 10 launches (median and
-                 quartiles);
+                 quartiles), K9 and K16 in 21 turns too;
                  K8 o K7 bit-identical to K5 and K10 o K9 to K6; K12 and
                  K11 on
                  the flat PYRAMID stream of the field (with an int32
@@ -109,7 +109,8 @@ Phases (each prints its wall time):
                  inputs; HYBRID with two local levels' encode peak; S1
                  bit for bit against its plain version at SINGLEDIM's
                  top-level solves (257, 512, 512) dim 0, (257, 257, 512)
-                 dim 1, (257, 257, 257) dim 2;
+                 dim 1, (257, 257, 257) dim 2, each timed in 21 turns
+                 beside a tensordot with the dense inverse;
  13. host codecs - the 512^3 field with NONE and HUFFMAN_ZLIB (the flat
                  PYRAMID stream coded on the host: the flat path's
                  transform kernels, no codec kernel), each API round
@@ -190,25 +191,30 @@ Phases (each prints its wall time):
                  s = inf and ||v - out||_0 <= 1e-3 by the port's norms at
                  s = 0, zlib level 9's time;
  22. long dims - dims over 4096 nodes take the per-dim transform, its
-                 correction solving with S1 (``csrc/tridiag.cu``); each
+                 correction solving with S1 (``csrc/tridiag.cuh``); each
                  case with its own launch counters, bench.py's kind of
                  field built in float32 on the card from seed 0, ABS
                  1e-3, after S1 bit for bit against its plain version on
-                 each of its layouts and schedules (check_solve_layouts):
+                 each of its layouts at its default geometry and with
+                 walks forced (a small segment, a 1-node overlap, data
+                 with zeros, signed zeros, a NaN and 1e-30 values; walks
+                 in shared memory and re-solved segments both counted and
+                 > 0 in every case; check_solve_layouts):
                  (a) a 1-D series of 280,953,867 values (one HACC
                  field of SDRBench; L = 29, 30 segments): the hierarchy's
                  build time (host work alone, built on a host thread
                  while phases 13-21 run), the round trip, S1 twice a
                  per-dim level,
                  device encode/decode and S1's share of them, S1 per
-                 level and alone on the top level's 2^28 + 1 nodes, S1
+                 level and alone on the top level's 2^28 + 1 nodes (in
+                 TURNS queued turns), S1
                  bit for bit against its plain version on solves of at
                  most 2^16 nodes and within SOLVE_RESIDUAL_BOUND above;
                  (b) (64, 512, 8192), levels 5-6 per dim: K5/K6 once,
                  K1 where its gate admits, K2 once, device times, and S1
                  at level 6 along each axis bit for bit against its
-                 plain version (the kernels line's entry, dim 0, with a
-                 dense inverse tensordot as its library time); for (a)
+                 plain version, in TURNS turns beside a tensordot with
+                 the dense inverse (the kernels line's entry: dim 0); for (a)
                  and (b) the encode's peak device memory and the tables
                  within it against the planner's factor, no table left
                  on the card by a call, the ratio and error those before
@@ -284,9 +290,10 @@ T_START = time.perf_counter()
 SHAPE = (512, 512, 512)
 TOL = 1e-3
 SEED = 0
-# Turns of K4's timing (each the 10 launches of one decode): the median
-# and quartiles settle its figure
-K4_TURNS = 21
+# Turns of the settled timings (K4's 10 launches of one decode, K9, K16,
+# each S1 case and its tensordot): the median and quartiles settle each
+# figure
+TURNS = 21
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside
 # the tensor cores (the rate the scalar integer and float work of these
 # kernels is counted against).
@@ -417,6 +424,17 @@ def turn_ms(fn, turns: int) -> np.ndarray:
         e.record()
     ev[-1].synchronize()
     return np.asarray([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+
+
+def turns_median(label, fn, turns: int = TURNS) -> float:
+    """The median ms of ``fn`` over ``turns`` queued turns
+    (:func:`turn_ms`), logged with its quartiles."""
+    t = turn_ms(fn, turns)
+    q1, med, q3 = np.percentile(t, [25, 50, 75])
+    log(f"{label}: {turns} turns (CUDA events between turns, the queue "
+        f"kept full): median {med:.4f} ms, quartiles {q1:.4f} / {q3:.4f} ms "
+        f"(min {t.min():.4f}, max {t.max():.4f})")
+    return float(med)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -565,14 +583,10 @@ def check_kernels(hier, v):
     err = max(max_abs_diff(g, w) for g, w in
               zip(k4(bk.bp_decode_condense_f32),
                   k4(bk.bp_decode_condense_f32_plain)))
-    k4_ms = turn_ms(lambda: k4(bk.bp_decode_condense_f32), K4_TURNS)
-    q1, med, q3 = np.percentile(k4_ms, [25, 50, 75])
-    log(f"K4 over {K4_TURNS} turns of its {len(pyr)} launches (CUDA events "
-        f"between turns, the queue kept full): median {med:.4f} ms, "
-        f"quartiles {q1:.4f} / {q3:.4f} ms (min {k4_ms.min():.4f}, max "
-        f"{k4_ms.max():.4f})")
+    med = turns_median(f"K4, {len(pyr)} launches a turn",
+                       lambda: k4(bk.bp_decode_condense_f32))
     add("bp_decode_condense_f32", "mgard_tpu_torch/csrc/bp_codec.cu",
-        "mgard_tpu/ops/pallas_kernels.py:621", err, float(med),
+        "mgard_tpu/ops/pallas_kernels.py:621", err, med,
         cuda_ms(lambda: k4(bk.bp_decode_condense_f32_plain), 2),
         4 * rows * C + 4 * nvals + 8 * sum(ncs),
         (OPS_BUTTERFLY + OPS_DEQUANT) * nvals)
@@ -657,8 +671,9 @@ def check_split_kernels(add, pyr, ncs, C, inv_q, k2, words, rows):
     del planted, got, want
     add("bp_quant_zigzag", "mgard_tpu_torch/csrc/bp_codec.cu",
         "mgard_tpu/ops/pallas_kernels.py:380", max(err, perr),
-        cuda_ms(lambda: [bk.bp_quant_zigzag(p, nc, C, inv_q)
-                         for p, nc in zip(pyr, ncs)], 5),
+        turns_median(f"K16, {len(pyr)} launches a turn",
+                     lambda: [bk.bp_quant_zigzag(p, nc, C, inv_q)
+                              for p, nc in zip(pyr, ncs)]),
         cuda_ms(lambda: [bk.bp_quant_zigzag_plain(p, nc, C, inv_q)
                          for p, nc in zip(pyr, ncs)], 2),
         4 * nvals + 4 * nwords + 8 * sum(ncs), (OPS_QUANT + 1) * nvals)
@@ -974,9 +989,11 @@ def check_stencil(hier, v):
                                "stencil_kernels.py:522")}
     counts = two_pass_counts(hier, l)
     for name, (kernel, plain, line) in calls.items():
+        ms = turns_median("K9 (tiled)", kernel) if name == "run_dec_b20" \
+            else cuda_ms(kernel, 10)
         record(results, name, "mgard_tpu_torch/csrc/stencil.cu",
                f"mgard_tpu/ops/{line}", max_abs_diff(kernel(), plain()),
-               cuda_ms(kernel, 10), cuda_ms(plain, 3), *counts[name])
+               ms, cuda_ms(plain, 3), *counts[name])
     check_compositions(hier, v, C, det, f"{SHAPE} level {l}")
     return results
 
@@ -1620,7 +1637,8 @@ def check_singledim_s1(v_host):
     """S1 bit for bit against its plain version at the SINGLEDIM
     decomposition's top-level solves of the 512^3 field: (257, 512, 512)
     along dim 0, (257, 257, 512) along dim 1, (257, 257, 257) along dim 2
-    (the last axis, moved first), each on the correction's own input."""
+    (the last axis, read as it lies), each on the correction's own input,
+    timed in turns beside a tensordot with the dense inverse."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import transform, tridiag
@@ -1635,20 +1653,20 @@ def check_singledim_s1(v_host):
         detail = A - transform.prolong(old, lev, d)
         B = transform.restrict(tridiag.mass_apply(detail, lev.h, d), lev, d)
         del detail
-        x = tridiag.mass_solve(B, clev.offdiag, clev.divisors, d)
-        plain = tridiag.mass_solve_plain(B, clev.offdiag, clev.divisors, d)
-        with tridiag.table_scope():     # its tables copied once
-            ms = cuda_ms(lambda: tridiag.mass_solve(B, clev.offdiag,
-                                                    clev.divisors, d), 3)
-        bound = bound_ms(2 * B.numel() * B.element_size(), 0)[0]
-        got.append((tuple(B.shape), d, bits_equal(x, plain), round(ms, 4),
-                    round(bound, 4)))
+        label = f"S1 SINGLEDIM {tuple(B.shape)} axis {d}"
+        x, same, ms = s1_turns(B, clev, d, label)
+        lib_ms, lib = s1_library_ms(B, clev, d, label)
+        del lib
+        bound = bound_ms(s1_bytes(B, d), 0)[0]
+        got.append((tuple(B.shape), d, same, round(ms, 4), round(bound, 4),
+                    f"{bound / ms:.1%}", round(lib_ms, 4)))
         A = old + x
-        del B, x, plain, old
+        del B, x, old
     del A
     torch.cuda.empty_cache()
     log(f"S1 at the SINGLEDIM top-level solves (shape, axis, bit-identical, "
-        f"ms, bound ms): {got}")
+        f"median ms, bound ms with its tables, share, tensordot median ms): "
+        f"{got}")
     if [g[0] for g in got] != [(257, 512, 512), (257, 257, 512),
                                (257, 257, 257)] \
             or not all(g[2] for g in got):
@@ -2892,7 +2910,7 @@ class SolveProbe:
 def table_costs(hier):
     """What the top level's tables of the per-dim form cost each call, two
     ways, host clock: copied from their host sides (the spacings and
-    ratios of the level, S1's three tables of the level below), as the
+    ratios of the level, S1's two tables of the level below), as the
     port does, and built on the card from the level's coordinates and the
     divisors of the level below, which are the same bits (timed here
     only, to choose between them)."""
@@ -2921,7 +2939,7 @@ def table_costs(hier):
         xc = transform.extract_old(x, lev, 0)
         off = ((xc[1:] - xc[:-1]) / 6).float()
         div = torch.from_numpy(clev.divisors).cuda().float()
-        got = (h.float(), ratio, off / div[:-1], off, div)
+        got = (h.float(), ratio, off, div)
         torch.cuda.synchronize()
         return got
 
@@ -3073,81 +3091,152 @@ def long_device_times(label, comp, v, header, sections):
     return enc_s
 
 
-def s1_record(b, lev, axis):
-    """S1 at one solve of the main path against its plain version: the
-    kernels-line entry (bit-identical, timed).  Its library time is one
-    tensordot of the level's dense inverse mass matrix (built on the card
-    in float64 outside the timed region, cast to the data's dtype) with
-    ``b`` along ``axis``, as the dense-matrix correction applies it."""
+def s1_bytes(b, axis) -> int:
+    """The bytes S1 must move on ``b`` along ``axis``: b read and x written
+    once, and its two tables (off, div) read once."""
+    n, size = b.shape[axis], b.element_size()
+    return 2 * b.numel() * size + (2 * n - 1) * size
+
+
+def s1_library_ms(b, lev, axis, label):
+    """One tensordot of the level's dense inverse mass matrix (built on
+    the card in float64 outside the timed region, cast to the data's
+    dtype) with ``b`` along ``axis``, as the dense-matrix correction
+    applies it, timed in turns; returns (ms, its output)."""
     import torch
     from mgard_tpu_torch.ops import tridiag
-    x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis)
-    plain = tridiag.mass_solve_plain(b, lev.offdiag, lev.divisors, axis)
-    err = 0.0 if bits_equal(x, plain) else \
-        float((x.double() - plain.double()).abs().max()) or float("nan")
     n = b.shape[axis]
     M = tridiag.mass_apply(torch.eye(n, dtype=torch.float64,
                                      device=b.device), lev.h, 0)
     Minv = torch.linalg.inv(M).to(b.dtype)
     del M
     lib = torch.tensordot(Minv, b, dims=([1], [axis])).movedim(0, axis)
-    lib_err = float((lib.double() - x.double()).abs().max())
-    lib_ms = cuda_ms(lambda: torch.tensordot(Minv, b, dims=([1], [axis])), 5)
-    del lib, Minv
-    log(f"S1 library on {tuple(b.shape)} axis {axis}: tensordot with the "
-        f"dense inverse {lib_ms:.4f} ms (max|diff| to S1 {lib_err:.3e})")
-    nbytes = 2 * b.numel() * b.element_size()
+    ms = turns_median(f"{label}: tensordot with the dense inverse",
+                      lambda: torch.tensordot(Minv, b, dims=([1], [axis])))
+    return ms, lib
+
+
+def s1_turns(b, lev, axis, label, plain=True):
+    """S1 on ``b`` along ``axis``: (x, bits equal to the plain version's,
+    or None where ``plain`` is false, its median ms over TURNS queued
+    turns with its tables copied once)."""
+    from mgard_tpu_torch.ops import tridiag
+    x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis)
+    same = plain and bits_equal(x, tridiag.mass_solve_plain(
+        b, lev.offdiag, lev.divisors, axis))
     with tridiag.table_scope():     # its tables copied once
-        ms = cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
-                                                axis), 5)
+        ms = turns_median(f"{label}: S1", lambda: tridiag.mass_solve(
+            b, lev.offdiag, lev.divisors, axis))
+    return x, same, ms
+
+
+def s1_record(b, lev, axis):
+    """S1 at one solve of the main path against its plain version: the
+    kernels-line entry (bit-identical, timed in turns) with a tensordot
+    (:func:`s1_library_ms`) as its library time."""
+    from mgard_tpu_torch.ops import tridiag
+    label = f"S1 on {tuple(b.shape)} axis {axis}"
+    x, same, ms = s1_turns(b, lev, axis, label)
+    err = 0.0 if same else float((x - tridiag.mass_solve_plain(
+        b, lev.offdiag, lev.divisors, axis)).abs().max()) or float("nan")
+    lib_ms, lib = s1_library_ms(b, lev, axis, label)
+    lib_err = float((lib.double() - x.double()).abs().max())
+    del lib
+    log(f"{label}: max|tensordot - S1| {lib_err:.3e}")
     results = []
-    record(results, "S1 " + SOLVE_NAME, "mgard_tpu_torch/csrc/tridiag.cu",
+    record(results, "S1 " + SOLVE_NAME, "mgard_tpu_torch/csrc/tridiag.cuh",
            "mgard_tpu/ops/tridiag.py:69 (lax.scan, no Pallas kernel)", err,
            ms,
            cuda_ms(lambda: tridiag.mass_solve_plain(
-               b, lev.offdiag, lev.divisors, axis), 1),
-           nbytes, 0, library_ms=lib_ms)
+               b, lev.offdiag, lev.divisors, axis), 1, warm=False),
+           s1_bytes(b, axis), 0, library_ms=lib_ms)
     return results[0]
 
 
+def planted_lines(shape, axis, dtype, seed):
+    """Normal data along ``axis`` with its first lines planted: a line of
+    zeros, signed zeros at every third node, a NaN at node 300 and
+    values scaled to 1e-30 (a 1-D series: the zeros, signed zeros and
+    small values in stretches of the one line, no NaN)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    bm = b.movedim(axis, -1).reshape(-1, shape[axis])   # a view of b
+    if bm.shape[0] == 1:
+        bm[0, 1000:2000] = 0.0
+        bm[0, 2000:3000:3] = -0.0
+        bm[0, 3000:4000] *= 1e-30
+    else:
+        bm[1] = 0.0
+        bm[2, ::3] = -0.0
+        bm[3, 300] = float("nan")
+        bm[4] *= 1e-30
+    return b
+
+
+def same_or_both_nan(a, b) -> bool:
+    """Bit for bit, except that a NaN may stand for a NaN of other bits."""
+    import torch
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and bits_equal(
+        torch.where(nan, 0, a), torch.where(nan, 0, b))
+
+
 def check_solve_layouts():
-    """S1 bit for bit against its plain version on each of its layouts
-    and schedules, float32 and float64: whole lines along the first, a
-    middle and the last axis (the last moved first), chunked lines of a
-    1-D series and of a middle axis (outer and inner both over 1), and
-    the chunked ones again with a 1-node overlap, where most chunks miss
-    and are walked."""
+    """S1 bit for bit against its plain version on each of its layouts,
+    float32 and float64: at the default geometry whole lines along the
+    first, a middle and the last axis (read as it lies) and segmented
+    lines of a 1-D series and of a middle axis; then launched with a
+    small segment and a 1-node overlap, where most runs and segments miss
+    and are walked, on data with zeros, signed zeros, a NaN and 1e-30
+    values: a 1-D series (one line a block), the last axis of many lines
+    and lines along the first and a middle axis (32 lines a tile), each
+    with its walks in shared memory and its re-solved segments counted
+    (both must be > 0)."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import tridiag
 
     cases = [((33, 257, 40), 0), ((33, 257, 40), 1), ((33, 40, 257), 2),
-             ((5001,), 0), ((3, 5001, 7), 1)]
+             ((5001,), 0), ((3, 5001, 7), 1), ((64, 5001), 1)]
     got = []
     g = torch.Generator(device="cuda").manual_seed(3)
-    saved = tridiag._SOLVE_OVERLAP
-    try:
-        for dtype in (torch.float32, torch.float64):
-            for shape, axis in cases:
-                lev = mt.Hierarchy((shape[axis],)).dims[0][-1]
-                b = torch.randn(shape, generator=g, device="cuda",
-                                dtype=dtype)
-                plain = tridiag.mass_solve_plain(b, lev.offdiag,
-                                                 lev.divisors, axis)
-                for overlap in (saved, 1):
-                    tridiag._SOLVE_OVERLAP = overlap
-                    x = tridiag.mass_solve(b, lev.offdiag, lev.divisors,
-                                           axis)
-                    m = b.numel() // shape[axis]
-                    got.append((shape, axis, str(dtype)[6:], overlap,
-                                tridiag.chunk_length(shape[axis], m),
-                                bits_equal(x, plain)))
-    finally:
-        tridiag._SOLVE_OVERLAP = saved
-    log(f"S1 layouts (shape, axis, dtype, overlap, chunk, bit-identical): "
-        f"{got}")
-    if not all(c[-1] for c in got):
-        raise AssertionError("S1 differs from its plain version")
+    for dtype in (torch.float32, torch.float64):
+        for shape, axis in cases:
+            lev = mt.Hierarchy((shape[axis],)).dims[0][-1]
+            b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+            x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis)
+            n = shape[axis]
+            geo = tridiag.solve_geometry(n, b.numel() // n,
+                                         b.element_size())
+            got.append((shape, axis, str(dtype)[6:], geo.lines, geo.nseg,
+                        bits_equal(x, tridiag.mass_solve_plain(
+                            b, lev.offdiag, lev.divisors, axis))))
+    log(f"S1 layouts at the default geometry (shape, axis, dtype, lines a "
+        f"tile, segments a line, bit-identical): {got}")
+    forced = [((8193,), 0, 512), ((64, 1001), 1, 48), ((1001, 40), 0, 48),
+              ((2, 1001, 40), 1, 64)]
+    walked = []
+    for dtype in (torch.float32, torch.float64):
+        for shape, axis, segment in forced:
+            lev = mt.Hierarchy((shape[axis],), coordinates=[np.sort(
+                np.random.default_rng(0).uniform(0, 1, shape[axis]))]
+                               ).dims[0][-1]
+            b = planted_lines(shape, axis, dtype, seed=len(walked))
+            walks = torch.zeros(2, dtype=torch.int32, device="cuda")
+            x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis,
+                                   segment=segment, overlap=1, walks=walks)
+            w = walks.tolist()
+            walked.append((shape, axis, str(dtype)[6:], segment, w,
+                           same_or_both_nan(x, tridiag.mass_solve_plain(
+                               b, lev.offdiag, lev.divisors, axis))))
+    log(f"S1 with walks forced, overlap 1 (shape, axis, dtype, segment, "
+        f"[runs walked in shared memory, segments re-solved], "
+        f"bit-identical): {walked}")
+    if not all(c[-1] for c in got + walked) \
+            or not all(min(c[4]) > 0 for c in walked):
+        raise AssertionError("S1 differs from its plain version, or a "
+                             "forced case walked nothing")
 
 
 def long_series_hierarchy():
@@ -3215,11 +3304,14 @@ def long_series(prebuilt):
     lev = next(lv for lv in hier.dims[0] if lv.n == n_top)
     b = torch.randn(n_top, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
-    with tridiag.table_scope():     # its tables copied once
-        top_ms = cuda_ms(lambda: tridiag.mass_solve(b, lev.offdiag,
-                                                    lev.divisors, 0), 3)
-    log(f"long series: S1 alone on {n_top} nodes: {top_ms:.3f} ms, bound "
-        f"{bound_ms(8 * n_top, 0)[0]:.4f} ms (bytes)")
+    # (its residual is checked on the encode's own input below)
+    _, _, top_ms = s1_turns(b, lev, 0, f"long series top level, {n_top} "
+                                       f"nodes", plain=False)
+    top_bound = bound_ms(s1_bytes(b, 0), 0)[0]
+    log(f"long series: S1 alone on {n_top} nodes: median {top_ms:.4f} ms, "
+        f"bound {top_bound:.4f} ms with its tables ("
+        f"{bound_ms(8 * n_top, 0)[0]:.4f} ms for b and x alone), "
+        f"{top_bound / top_ms:.1%}")
     del b
     with SolveProbe(hier, check=True) as probe:
         comp.encode_device(v, header.tolerance)
@@ -3652,10 +3744,29 @@ def x_abs_path(v_host):
             blob):
         raise AssertionError("X ABS: the Huffman blob is not the "
                              "container's")
-    back, dec_blob_ms = synced_ms(mc._decode_x_huffman, blob, q.device)
+    # the decode's peak device memory over what the card held before it,
+    # and its groups of chunks (each group's code table at most
+    # _X_GROUP_BITS bits, 5 bytes a bit)
+    groups, walk = [], mc._x_walk_group
+    mc._x_walk_group = lambda *a: groups.append(len(a[1])) or walk(*a)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        back, dec_blob_ms = synced_ms(mc._decode_x_huffman, blob, q.device)
+    finally:
+        mc._x_walk_group = walk
+    dec_peak = torch.cuda.max_memory_allocated() - held
+    log(f"X ABS Huffman decode: peak device memory {dec_peak} bytes above "
+        f"the {held} held before it; {len(groups)} groups of chunks "
+        f"(chunks a group {groups}) of at most {mc._X_GROUP_BITS} bits of "
+        f"the {8 * len(blob)}-bit blob; {q.numel()} symbols")
     if not torch.equal(back, q):
         raise AssertionError("X ABS: the blob does not decode to the "
                              "quantized stream")
+    if dec_peak > 5 * mc._X_GROUP_BITS + 64 * q.numel():
+        raise AssertionError(f"X ABS: the decode's peak {dec_peak} bytes "
+                             "exceeds its group budget and outputs")
     log(f"X ABS stages (host clock, card synchronized): transform and "
         f"quantization {q_ms:.3f} ms ({q.numel()} values, max |q| "
         f"{int(q.abs().max())}, {int(((q < -4096) | (q >= 4096)).sum())} "

@@ -54,10 +54,11 @@
 // K10 reads it and detail and writes the output.  About 10 flops a value
 // are far below the card's float32 rate.
 //
-// K5 and K7-K10: one thread per output element evaluates its tree, k (the
-// contiguous dim) across the threads of a block so that loads and stores
-// coalesce; the neighbour reads at i +- 1 and j +- 1 hit rows that
-// neighbouring blocks read too, which L1 and L2 serve.
+// K5, K7, K8 and K10: one thread per output element evaluates its tree,
+// k (the contiguous dim) across the threads of a block so that loads and
+// stores coalesce; the neighbour reads at i +- 1 and j +- 1 hit rows that
+// neighbouring blocks read too, which L1 and L2 serve.  K9 takes K6's
+// tile without its dim-1 stage (dec_b20_tiled_kernel).
 //
 // K6 is tiled (gpk_prolong_add_tiled_kernel): a block of 256 threads owns
 // an 8 x 8 x 128 output tile and computes each g2 and g0 value once, in
@@ -97,18 +98,6 @@ struct FineSource {
   int n1, n2;
   __device__ __forceinline__ float operator()(int i, int j, int k) const {
     return a[(static_cast<int64_t>(i) * n1 + j) * n2 + k];
-  }
-};
-
-// Source of K9: C at the coarse indices of dims 0 and 2, at column j of
-// the coarse dim 1.
-struct CoarseRowSource {
-  const float* c;
-  const int* c0;
-  const int* c2;
-  int nc1, nc2;
-  __device__ __forceinline__ float operator()(int i, int j, int k) const {
-    return c[(static_cast<int64_t>(c0[i]) * nc1 + j) * nc2 + c2[k]];
   }
 };
 
@@ -340,17 +329,81 @@ __global__ void b1sub_kernel(const float* __restrict__ v0,
   out[idx] = __fsub_rn(a[idx], g1(src, t1, i, j, k));
 }
 
-// One thread per element of V0 (n0, nc1, n2): j is a coarse column.
-__global__ void dec_b20_kernel(const float* __restrict__ c,
-                               float* __restrict__ v0, DimTable t0,
-                               DimTable t2, int n2, int nc2) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const int i = blockIdx.z;
-  if (k >= n2) return;
-  const int nc1 = gridDim.y;
-  const CoarseRowSource src{c, t0.c, t2.c, nc1, nc2};
-  v0[(static_cast<int64_t>(i) * nc1 + j) * n2 + k] = g0(src, t0, t2, i, j, k);
+// K9, tiled (see the note at the top): a block owns 8 fine i x kJ9
+// coarse j x 128 k of V0 (n0, nc1, n2).
+//   1. g2 at every parent row of the tile's window in dim 0 (at most
+//      kT0/2 + 1) for each coarse j of the tile and every k, read from C
+//      at the coarse indices of dim 2, a select rather than a branch on k;
+//   2. g0 at every i of the tile: warp w owns i0 + w (a parent i copies
+//      its g2 row, a new i lerps two), lane q owns k0 + 4q .. 4q + 3,
+//      stored 16 bytes a lane.
+// nc1 is odd on the gate's levels (2^k / 2 + 1), so the tile in j masks
+// its ragged edge.  The same _rn expressions in the same order as the
+// per-element tree, so K10 o K9 stays K6 bit for bit.  nvcc -Xptxas -v:
+// 40 registers, 20,480 bytes of shared memory, no spills.
+constexpr int kJ9 = 8;
+
+__global__ void __launch_bounds__(kProlongThreads)
+dec_b20_tiled_kernel(const float* __restrict__ c, float* __restrict__ v0,
+                     DimTable t0, DimTable t2, int n0, int nc1, int n2,
+                     int nc2) {
+  __shared__ __align__(16) float g2s[kRows0][kJ9][kT2];
+  const int k0 = blockIdx.x * kT2;
+  const int j0 = blockIdx.y * kJ9;
+  const int i0 = blockIdx.z * kT0;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nj = nc1 - j0 < kJ9 ? nc1 - j0 : kJ9;
+
+  int ca, na;
+  parent_window(t0.c, i0, kT0, n0, &ca, &na);
+  // unreachable through the wrapper, which admits only the gate's
+  // structure; a window past the staging capacity would write outside it
+  if (na > kRows0) __trap();
+
+  // stage 1: g2 rows (ca + a, j0 + b), a < na, b < nj; thread kk of k
+  {
+    const int kk = threadIdx.x % kT2;
+    const int k = k0 + kk;
+    const int ck = t2.c[k];
+    int il = ck, ir = ck;
+    float w = 0.0f;
+    if (ck < 0) {
+      il = t2.c[k - 1];
+      ir = t2.c[k + 1];
+      w = t2.w[k];
+    }
+    const int rows = na * nj;
+#pragma unroll 4
+    for (int q = threadIdx.x / kT2; q < rows; q += kProlongThreads / kT2) {
+      const int a = q / nj, b = q - a * nj;
+      const float* __restrict__ src =
+          c + (static_cast<int64_t>(ca + a) * nc1 + j0 + b) * nc2;
+      const float l = src[il], r = src[ir];
+      g2s[a][b][kk] = ck >= 0 ? l : lerp_rn(w, l, r);
+    }
+  }
+  __syncthreads();
+
+  // stage 2: g0 at i (warp-uniform branch), stored 16 bytes a lane
+  const int i = i0 + warp;
+  const int ci = t0.c[i];
+  float4* __restrict__ out4 = reinterpret_cast<float4*>(
+      v0 + (static_cast<int64_t>(i) * nc1 + j0) * n2 + k0) + lane;
+  if (ci >= 0) {
+    for (int b = 0; b < nj; ++b) {
+      out4[b * (n2 / 4)] =
+          reinterpret_cast<const float4*>(g2s[ci - ca][b])[lane];
+    }
+  } else {
+    const int sl = t0.c[i - 1] - ca, sr = t0.c[i + 1] - ca;
+    const float w = t0.w[i];
+    for (int b = 0; b < nj; ++b) {
+      const float4 l = reinterpret_cast<const float4*>(g2s[sl][b])[lane];
+      const float4 r = reinterpret_cast<const float4*>(g2s[sr][b])[lane];
+      out4[b * (n2 / 4)] = lerp4_rn(w, l, r);
+    }
+  }
 }
 
 __global__ void dec_b1add_kernel(const float* __restrict__ v0,
@@ -434,17 +487,20 @@ extern "C" cudaError_t mgard_b1sub(const float* v0, const float* a,
   return cudaGetLastError();
 }
 
+// K9 takes the shapes the GPK gate admits (n0 % 8 and n2 % 128 both 0)
+// and refuses any other.
 extern "C" cudaError_t mgard_dec_b20(const float* c, float* v0,
                                      const float* w0, const int* c0,
                                      const float* w2, const int* c2, int n0,
                                      int nc1, int n2, int nc2,
                                      cudaStream_t stream) {
-  if (n0 <= 0 || nc1 <= 0 || n2 <= 0) return cudaSuccess;
-  dim3 grid;
-  const cudaError_t err = grid_for(n0, nc1, n2, &grid);
-  if (err != cudaSuccess) return err;
-  dec_b20_kernel<<<grid, kThreads, 0, stream>>>(c, v0, DimTable{w0, c0},
-                                                DimTable{w2, c2}, n2, nc2);
+  if (n0 <= 0 || nc1 <= 0 || n2 <= 0 || n0 % kT0 || n2 % kT2 ||
+      n0 / kT0 > 65535 || (nc1 + kJ9 - 1) / kJ9 > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(n2 / kT2, (nc1 + kJ9 - 1) / kJ9, n0 / kT0);
+  dec_b20_tiled_kernel<<<grid, kProlongThreads, 0, stream>>>(
+      c, v0, DimTable{w0, c0}, DimTable{w2, c2}, n0, nc1, n2, nc2);
   return cudaGetLastError();
 }
 

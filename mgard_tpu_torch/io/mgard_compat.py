@@ -566,6 +566,9 @@ _X_TABLE_BITS = 20
 _X_POSITIONS = 1 << 24
 # Lockstep steps captured in one CUDA graph on the card.
 _X_GRAPH_STEPS = 256
+# Bits of the stream whose codes are tabled at once (5 bytes a bit): the
+# chunks are decoded in groups that fit (2.7 GB of table).
+_X_GROUP_BITS = 1 << 29
 
 
 def _x_code_table(first, entry, T: int, escape: bool, device):
@@ -591,9 +594,11 @@ def _x_code_table(first, entry, T: int, escape: bool, device):
     return tbl_len, tbl_idx
 
 
-def _x_codes_at(words: torch.Tensor, nbits: int, first, entry, maxlen: int):
+def _x_codes_at(words: torch.Tensor, nbits: int, first, entry, maxlen: int,
+                tail: int = 0):
     """The code length (uint8) and key index (int32) of the code that
-    starts at each bit position 0..nbits of the stream ``words`` (u64
+    starts at each bit position 0..nbits of the stream ``words``, and
+    position nbits's again at ``tail`` positions after it (u64
     words as int64, MSB first, two zero words of padding).  The 64 bits
     at a position come from two words; a table over the first
     min(maxlen, ``_X_TABLE_BITS``) bits gives length and index, and
@@ -610,8 +615,8 @@ def _x_codes_at(words: torch.Tensor, nbits: int, first, entry, maxlen: int):
                                            ).astype(np.int64),
                                 torch.int64, dev)
         entryt = _device_tensor(entry[T + 1:maxlen + 1], torch.int64, dev)
-    len_at = torch.empty(nbits + 1, dtype=torch.uint8, device=dev)
-    idx_at = torch.empty(nbits + 1, dtype=torch.int32, device=dev)
+    len_at = torch.empty(nbits + 1 + tail, dtype=torch.uint8, device=dev)
+    idx_at = torch.empty(nbits + 1 + tail, dtype=torch.int32, device=dev)
     for a in range(0, nbits + 1, _X_POSITIONS):
         p = torch.arange(a, min(a + _X_POSITIONS, nbits + 1), device=dev)
         o = p & 63
@@ -633,44 +638,55 @@ def _x_codes_at(words: torch.Tensor, nbits: int, first, entry, maxlen: int):
             del esc, pref, ok, lidx, found
         len_at[a:a + top.numel()] = ln
         idx_at[a:a + top.numel()] = ix
+    len_at[nbits + 1:] = len_at[nbits]
+    idx_at[nbits + 1:] = idx_at[nbits]
     return len_at, idx_at
 
 
-def _x_huffman_decode_chunks(ddata, bits, entries, first, entry, keys,
-                             pc: int, chunk_size: int, device
-                             ) -> torch.Tensor:
-    """Canonical-Huffman decode of the chunked X bitstream
-    (``mgard_compat.py:374-452``), bit for bit the JAX package's.  Every
-    bit position's code is decoded at once (:func:`_x_codes_at`); then
-    every chunk follows its chain of codes in lockstep, one symbol a step
-    (a gather of the key index and of the length at its cursor), for
-    chunk_size steps.  On a card the steps run as CUDA graphs of
-    ``_X_GRAPH_STEPS`` steps."""
-    dev = torch.device(device)
+def _x_chunk_groups(bits, entries, budget: int):
+    """Consecutive chunk ranges [c0, c1) whose bit range (chunk c reads
+    bits ``entries[c]·64`` to ``+ bits[c]``) spans at most ``budget``
+    bits, or one chunk where a chunk alone spans more."""
+    lo = (entries * 64).tolist()
+    hi = (entries * 64 + bits).tolist()
+    groups, c0 = [], 0
+    first, last = lo[0], hi[0]
+    for c in range(1, len(lo)):
+        first, last = min(first, lo[c]), max(last, hi[c])
+        if last - first > budget:
+            groups.append((c0, c))
+            c0, first, last = c, lo[c], hi[c]
+    groups.append((c0, len(lo)))
+    return groups
+
+
+def _x_walk_group(ddata, bits, entries, first, entry, maxlen: int,
+                  nsteps: int, dev) -> torch.Tensor:
+    """The key index of each symbol of the chunks of one group, each of
+    ``nsteps`` symbols, (nsteps, chunks): every bit position of the
+    group's words gets its code at once (:func:`_x_codes_at`); then every
+    chunk follows its chain of codes in lockstep, one symbol a step (a
+    gather of the key index and of the length at its cursor).  On a card
+    the steps run as CUDA graphs of ``_X_GRAPH_STEPS`` steps."""
     nchunk = bits.shape[0]
-    used = np.nonzero(first[1:] != _U64_MAX)[0] + 1
-    maxlen = int(used.max()) if used.size else 1
-    w_hi = int(entries[-1]) + (int(bits[-1]) + 63) // 64
-    words = torch.zeros(w_hi + 2, dtype=torch.int64, device=dev)
-    stream = ddata[:w_hi].view(np.int64)     # shorter if corrupt
+    w_lo = int(entries.min())
+    w_hi = int((entries + (bits + 63) // 64).max())
+    words = torch.zeros(w_hi - w_lo + 2, dtype=torch.int64, device=dev)
+    stream = ddata[w_lo:w_hi].view(np.int64)     # shorter if corrupt
     words[:len(stream)] = _device_tensor(stream, torch.int64, dev)
-    nbits = 64 * w_hi
-    len_at, idx_at = _x_codes_at(words, nbits, first, entry, maxlen)
+    nbits = 64 * (w_hi - w_lo)
+    # a cursor advances at most max(maxlen, 1) bits a step, and from
+    # nbits on (a corrupt stream) meets position nbits's code again
+    len_at, idx_at = _x_codes_at(words, nbits, first, entry, maxlen,
+                                 tail=nsteps * max(maxlen, 1))
     del words
 
-    n_in_chunk = _device_tensor(np.minimum(
-        pc - np.arange(nchunk, dtype=np.int64) * chunk_size, chunk_size),
-        torch.int64, dev)
-    start = _device_tensor(entries * 64, torch.int64, dev)
+    start = _device_tensor((entries - w_lo) * 64, torch.int64, dev)
     pos = start.clone()
-    step_no = torch.zeros((), dtype=torch.int64, device=dev)
-    nsteps = min(chunk_size, pc)
 
     def step(out_row):
-        p = pos.clamp_max(nbits)
-        torch.index_select(idx_at, 0, p, out=out_row)
-        pos.add_(len_at[p] * (step_no < n_in_chunk))
-        step_no.add_(1)
+        torch.index_select(idx_at, 0, pos, out=out_row)
+        pos.add_(len_at[pos])
 
     if dev.type == "cuda" and nsteps > _X_GRAPH_STEPS:
         G = _X_GRAPH_STEPS
@@ -685,15 +701,22 @@ def _x_huffman_decode_chunks(ddata, bits, entries, first, entry, keys,
                 step(stage[j])
         torch.cuda.current_stream(dev).wait_stream(side)
         pos.copy_(start)
-        step_no.zero_()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for j in range(G):
                 step(stage[j])
         for r in range(rounds):
+            if r == rounds - 1 and nsteps % G:
+                # the last round's steps alone: a cursor must stop at its
+                # chunk's end for the bit count below
+                del graph
+                for j in range(nsteps % G):
+                    step(sym_idx[r * G + j])
+                break
             graph.replay()
             sym_idx[r * G:(r + 1) * G].copy_(stage)
-        del graph
+        else:
+            del graph
         sym_idx = sym_idx[:nsteps]
     else:
         sym_idx = torch.empty((nsteps, nchunk), dtype=torch.int32,
@@ -703,9 +726,37 @@ def _x_huffman_decode_chunks(ddata, bits, entries, first, entry, keys,
     del len_at, idx_at
     if not torch.equal(pos - start, _device_tensor(bits, torch.int64, dev)):
         raise ValueError("X-Huffman stream decoded wrong bit count")
+    return sym_idx
+
+
+def _x_huffman_decode_chunks(ddata, bits, entries, first, entry, keys,
+                             pc: int, chunk_size: int, device
+                             ) -> torch.Tensor:
+    """Canonical-Huffman decode of the chunked X bitstream
+    (``mgard_compat.py:374-452``), bit for bit the JAX package's.  The
+    chunks are independent, so they are decoded in groups whose bit
+    range fits ``_X_GROUP_BITS`` (:func:`_x_chunk_groups`), one group's
+    code table on the device at a time (:func:`_x_walk_group`): the
+    table's memory is bounded by that budget, not by the stream.  Every
+    chunk holds ``chunk_size`` symbols but a short last one, which walks
+    alone for its own count."""
+    dev = torch.device(device)
+    nchunk = bits.shape[0]
+    used = np.nonzero(first[1:] != _U64_MAX)[0] + 1
+    maxlen = int(used.max()) if used.size else 1
+    last = pc - (nchunk - 1) * chunk_size
+    full = nchunk if last == chunk_size else nchunk - 1
+    groups = [(c0, c1, chunk_size) for c0, c1 in
+              (_x_chunk_groups(bits[:full], entries[:full], _X_GROUP_BITS)
+               if full else [])]
+    if full < nchunk:
+        groups.append((full, nchunk, last))
+    sym_idx = torch.cat([
+        _x_walk_group(ddata, bits[c0:c1], entries[c0:c1], first, entry,
+                      maxlen, steps, dev).T.reshape(-1)
+        for c0, c1, steps in groups])
     keyt = _device_tensor(keys.view(np.int64), torch.int64, dev)
-    syms = keyt[sym_idx.clamp(0, len(keys) - 1).to(torch.int64)]
-    return syms.T.reshape(-1)[:pc]
+    return keyt[sym_idx.clamp(0, len(keys) - 1).to(torch.int64)]
 
 
 # --- the MGARD-X format ------------------------------------------------------

@@ -609,6 +609,12 @@ class Compressor:
         with table_scope():
             return self._flat_to_array(flat, header.tolerance)
 
+    def decompress(self, buf: bytes) -> np.ndarray:
+        """Read the container ``buf``, then :meth:`decompress_parsed`
+        (``mgard_tpu/models/compressor.py:555-557``)."""
+        header, sections = fmt.read_container(buf)
+        return self.decompress_parsed(header, sections)
+
     def decompress_parsed(self, header: fmt.Header,
                           sections: List[bytes]) -> np.ndarray:
         return self._decode_parsed(header, sections).cpu().numpy()

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "mgard_bp_encode_core": (_P, _I, _P, _P, _P, _P),
     "mgard_bp_decode_core": (_P, _P, _I, _P, _P),
     "mgard_mass_solve": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                         _LL, _I, _P),
+                         _LL, _LL, _LL, _I, _P),
 }
 
 
@@ -95,7 +95,8 @@ def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources())
+    return any(s.stat().st_mtime > built
+               for s in (*sources(), *CSRC.glob("*.cuh")))
 
 
 def _run_all(commands) -> None:

@@ -31,13 +31,15 @@ reads across an edge.  The composition order (dim 2, then dim 0, then
 dim 1) is the JAX kernels', on both sides, so that encode and decode
 run the same lerps.
 The kernels (``csrc/stencil.cu``) read the coarse array ``C`` at its
-coarse indices (K6, K9), so no embedded array is formed.  K5 and K7-K10
-evaluate the lerp tree per output element; K6 builds ``K6_TILE`` output
-tiles in shared memory, each B_d value computed once (stage B2 over the
-tile's parent rows and their halo, then B0, then B1 plus ``detail``,
-16 bytes a thread), and takes only the levels the gate admits.  Each
-wrapper takes its plain PyTorch version for a CPU tensor, launches its
-kernel for a CUDA tensor and raises for anything else.
+coarse indices (K6, K9), so no embedded array is formed.  K5, K7, K8
+and K10 evaluate the lerp tree per output element; K6 builds
+``K6_TILE`` output tiles in shared memory, each B_d value computed once
+(stage B2 over the tile's parent rows and their halo, then B0, then B1
+plus ``detail``, 16 bytes a thread), and K9 builds ``K9_TILE`` tiles of
+V0 the same way without the B1 stage; both take only the levels the
+gate admits.  Each wrapper takes its plain PyTorch version for a CPU
+tensor, launches its kernel for a CUDA tensor and raises for anything
+else.
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ __all__ = ["gpk_structure_ok", "gpk_supported", "gpk_detail",
 _B0 = 8
 _B1 = 128
 
-# K6's output tile (dims 0, 1, 2), csrc/stencil.cu kT0, kT1, kT2.
+# K6's output tile (dims 0, 1, 2), csrc/stencil.cu kT0, kT1, kT2; K9's
+# (fine dim 0, coarse dim 1, dim 2), kT0, kJ9, kT2.
 K6_TILE = (8, 8, 128)
+K9_TILE = (8, 8, 128)
 
 # The JAX package's switch, read at import as it reads it: "0" selects the
 # two-pass form (K7-K10) in gpk_detail / gpk_prolong_add.
@@ -355,6 +359,9 @@ def run_dec_b20(hier: Hierarchy, C: torch.Tensor, l: int) -> torch.Tensor:
         return run_dec_b20_plain(hier, C, l)
     cshape = hier.shapes[l - 1]
     device = _check_cuda("run_dec_b20", C=(C, cshape))
+    if not gpk_structure_ok(hier, l):
+        raise ValueError(f"run_dec_b20: level {l} of {hier.shape} is not "
+                         "of the structure the GPK gate admits")
     vshape = _v0_shape(hier, l)
     V0 = torch.empty(vshape, dtype=C.dtype, device=C.device)
     _build.launch("mgard_dec_b20", C.data_ptr(), V0.data_ptr(),

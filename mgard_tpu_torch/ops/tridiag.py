@@ -40,6 +40,7 @@ import contextlib
 import math
 import mmap
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,16 +48,21 @@ import torch
 from . import _build
 
 __all__ = ["mass_apply", "mass_solve", "mass_solve_plain", "solve_tables",
-           "chunk_length", "cached_tensor", "table_scope", "pad_fold",
-           "along_axis"]
+           "solve_geometry", "SolveGeometry", "cached_tensor", "table_scope",
+           "pad_fold", "along_axis"]
 
-# S1 cuts each line into chunks that run side by side (csrc/tridiag.cu):
-# enough chunks a line for about _SOLVE_THREADS threads in all, none
-# shorter than _SOLVE_MIN_CHUNK nodes, each started _SOLVE_OVERLAP nodes
-# early.
-_SOLVE_THREADS = 1 << 17
-_SOLVE_MIN_CHUNK = 256
-_SOLVE_OVERLAP = 64
+# S1's tiles (csrc/tridiag.cuh): 256 threads a block; shared memory aimed
+# at three blocks an SM, else two, at most what one block may have
+# (H100); a run of _SOLVE_RUN nodes a thread where a block takes one
+# line; runs and tiles start _SOLVE_OVERLAP[itemsize] nodes early (the
+# sweeps contract by about 0.27 a step: float32 meets in ~13 steps,
+# float64 in ~29).
+_SOLVE_THREADS = 256
+_SOLVE_SMEM = (74 * 1024, 110 * 1024)
+_SMEM_MAX = 232448
+_SOLVE_RUN = 16
+_SOLVE_OVERLAP = {4: 32, 8: 64}
+_TILE_LINES = (256, 128, 64, 32)
 
 # The open table scopes, innermost last: each maps a key to a table made
 # while it was the innermost one.
@@ -253,19 +259,94 @@ def solve_tables(offdiag: np.ndarray, divisors: np.ndarray, dtype):
 
 
 def _device_tables(offdiag, divisors, dtype, device):
-    """:func:`solve_tables` on ``device``, kept as :func:`_kept` says,
-    copied from host tensors made once per level."""
+    """S1's tables ``(off, div)`` in ``dtype`` (it divides ``w`` itself),
+    on ``device``, kept as :func:`_kept` says, copied from host tensors
+    made once per level."""
     host = _host_kept(divisors, ("solve", dtype), lambda: tuple(
-        torch.from_numpy(a) for a in solve_tables(offdiag, divisors, dtype)))
+        torch.from_numpy(a) for a in solve_tables(offdiag, divisors,
+                                                  dtype)[1:]))
     return _kept(divisors, ("solve", dtype, str(device)), lambda: tuple(
         _upload(t, device) for t in host))
 
 
-def chunk_length(n: int, m: int) -> int:
-    """S1's chunk length for ``m`` lines of ``n`` nodes."""
-    per_line = max(1, -(-_SOLVE_THREADS // m))
-    nchunks = min(per_line, max(1, n // _SOLVE_MIN_CHUNK))
-    return -(-n // nchunks)
+class SolveGeometry(NamedTuple):
+    """S1's launch: ``lines`` lines a tile (1: one line a block, the runs
+    kernel), ``run`` nodes a thread's run, ``segment`` nodes of a line a
+    block owns, ``nseg`` segments a line, ``overlap`` nodes a run or a
+    tile starts early, ``smem`` bytes of shared memory a block,
+    ``blocks`` blocks of the tile kernel."""
+    lines: int
+    run: int
+    segment: int
+    nseg: int
+    overlap: int
+    smem: int
+    blocks: int
+
+
+def solve_smem(lines: int, run: int, segment: int, n: int, overlap: int,
+               itemsize: int) -> int:
+    """Shared memory of one S1 block, in bytes (``smem_bytes`` of
+    csrc/tridiag.cuh)."""
+    probes = 3 * _SOLVE_THREADS * itemsize + 4 * _SOLVE_THREADS
+    if lines == 1:
+        pad = -(-overlap // run) * run
+        return 4 * (segment + 2 * pad) // run * (run + 1) * itemsize + probes
+    width = min(n, segment + 2 * overlap)
+    return (lines * (width | 1) + 3 * width) * itemsize + probes
+
+
+def solve_geometry(n: int, m: int, itemsize: int, segment=None,
+                   overlap=None) -> SolveGeometry:
+    """S1's tiles for ``m`` lines of ``n`` nodes of ``itemsize``-byte
+    floats.  32 lines or more: the
+    most lines a tile (256, 128, 64 or 32; 256 / lines runs a line) whose
+    whole lines fit the aimed shared memory, else 32 lines cut into the
+    longest segments that fit, where a run is at least as long as the
+    overlap (which then at most doubles its sweeps); each aim in turn,
+    then all of a block's shared memory.  Fewer lines: one line a block,
+    256 runs of ``_SOLVE_RUN`` nodes (fewer on a short line).
+    ``segment`` and ``overlap`` force the cut (``segment``: 256 times a
+    power of two where a block takes one line); the kernel is exact with
+    any."""
+    ovl = int(overlap or _SOLVE_OVERLAP[itemsize])
+
+    def geometry(lines, run, seg):
+        nseg = -(-n // seg)
+        smem = solve_smem(lines, run, seg, n, ovl, itemsize)
+        if smem > _SMEM_MAX:
+            raise ValueError(f"S1: a tile of {lines} lines by {seg} + 2 x "
+                             f"{ovl} nodes does not fit a block")
+        return SolveGeometry(lines, run, seg, nseg, ovl, smem,
+                             -(-m // lines) * nseg)
+
+    if m < 32:
+        if segment is None:
+            run = 2
+            while run < _SOLVE_RUN and run * _SOLVE_THREADS < n:
+                run *= 2
+        else:
+            run = segment // _SOLVE_THREADS
+            if run < 2 or run & (run - 1) or run * _SOLVE_THREADS != segment:
+                raise ValueError(f"S1: a one-line segment is 256 times a "
+                                 f"power of two >= 2, got {segment}")
+        return geometry(1, run, run * _SOLVE_THREADS)
+    if segment is not None:
+        runs = _SOLVE_THREADS // 32
+        return geometry(32, -(-min(segment, n) // runs), min(segment, n))
+    for cap in (*_SOLVE_SMEM, _SMEM_MAX):
+        for lines in _TILE_LINES:
+            run = -(-n // (_SOLVE_THREADS // lines))
+            if solve_smem(lines, run, n, n, ovl, itemsize) <= cap:
+                return geometry(lines, run, n)
+        runs = _SOLVE_THREADS // 32
+        run = 0
+        while solve_smem(32, run + 1, runs * (run + 1), n, ovl,
+                         itemsize) <= cap:
+            run += 1
+        if run >= (ovl if cap < _SMEM_MAX else 1):
+            return geometry(32, run, runs * run)
+    raise ValueError(f"S1: no tile of {n}-node lines fits a block")
 
 
 def mass_solve_plain(b: torch.Tensor, offdiag: np.ndarray,
@@ -296,11 +377,15 @@ def mass_solve_plain(b: torch.Tensor, offdiag: np.ndarray,
 
 @_build.counted
 def mass_solve(b: torch.Tensor, offdiag: np.ndarray, divisors: np.ndarray,
-               axis: int) -> torch.Tensor:
+               axis: int, segment=None, overlap=None, walks=None
+               ) -> torch.Tensor:
     """Solve ``M x = b`` along ``axis`` (Thomas, with the precomputed
     divisors: the pre-eliminated diagonal).  ``offdiag``: the (n-1,)
     off-diagonal ``h/6``; ``divisors``: (n,).  float32 or float64; S1 on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor, the plain version on a CPU tensor.  ``segment`` and
+    ``overlap`` force S1's cut (:func:`solve_geometry`); ``walks``, an
+    int32 CUDA tensor of 2, gets the count of S1's walks in shared
+    memory and of its re-solved segments added."""
     n = b.shape[axis]
     if n < 2:
         raise ValueError("mass_solve requires >= 2 nodes along axis")
@@ -310,30 +395,33 @@ def mass_solve(b: torch.Tensor, offdiag: np.ndarray, divisors: np.ndarray,
     if b.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"mass_solve: float32 or float64 data, got "
                          f"{b.dtype}")
-    w, off, div = _device_tables(offdiag, divisors, b.dtype, device)
+    if walks is not None and (walks.dtype != torch.int32
+                              or walks.numel() != 2
+                              or walks.device != device):
+        raise ValueError("mass_solve: walks must be 2 int32 values on the "
+                         "data's device")
+    off, div = _device_tables(offdiag, divisors, b.dtype, device)
     m = b.numel() // n
     if m == 0:
         return torch.empty_like(b)
-    # S1 reads an (outer, n, inner) array, the threads of a warp on
-    # neighbouring lines; the last axis of an N-D array (inner = 1) is
-    # moved first so that they still are
+    # S1 reads (outer, n, inner) as it lies: no axis is moved
     inner = math.prod(b.shape[axis + 1:])
-    moved = inner == 1 and m > 1
-    bm = b.movedim(axis, 0).contiguous() if moved else b.contiguous()
-    if moved:
-        inner = m
-    x = torch.empty_like(bm)
-    chunk = chunk_length(n, m)
-    nchunks = -(-n // chunk)
-    # one chunk a line needs no scratch: one kernel runs both sweeps in x
-    dd = probe = x
-    if nchunks > 1:
-        dd = torch.empty_like(bm)
-        probe = torch.empty((nchunks, m), dtype=b.dtype, device=device)
-    _build.launch("mgard_mass_solve", bm.data_ptr(), w.data_ptr(),
-                  off.data_ptr(), div.data_ptr(), x.data_ptr(),
-                  dd.data_ptr(), probe.data_ptr(), n, m, inner, chunk,
-                  _SOLVE_OVERLAP, int(b.dtype == torch.float64),
-                  device=device)
+    itemsize = 8 if b.dtype == torch.float64 else 4
+    geo = solve_geometry(n, m, itemsize, segment, overlap)
+    bc = b.contiguous()
+    x = torch.empty_like(bc)
+    bounds = flags = None
+    if geo.nseg > 1:
+        # each block's boundary values and the checks' flags
+        bounds = torch.empty((4, geo.nseg, m), dtype=b.dtype, device=device)
+        flags = torch.empty((geo.nseg + 1, m), dtype=torch.int32,
+                            device=device)
+    _build.launch("mgard_mass_solve", bc.data_ptr(), off.data_ptr(),
+                  div.data_ptr(), x.data_ptr(),
+                  None if bounds is None else bounds.data_ptr(),
+                  None if flags is None else flags.data_ptr(),
+                  None if walks is None else walks.data_ptr(), n, m, inner,
+                  geo.lines, geo.run, geo.segment, geo.overlap,
+                  int(b.dtype == torch.float64), device=device)
     mass_solve.launches += 1
-    return x.movedim(0, axis) if moved else x
+    return x

@@ -2,7 +2,7 @@
 the CPU: the per-dim transform that the JAX package takes there (the lerp
 ``prolong``, and the correction through ``mass_apply``, ``restrict`` and
 the Thomas solve), the two switches that choose it, the fast divisor
-recurrence of the hierarchy, and S1's chunked solve.
+recurrence of the hierarchy, and S1's plain solve.
 
 * ``prolong`` and the fallback pyramids agree with JAX-on-CPU within
   ``REL_BOUND * max|v|`` (the bound of ``test_torch_transform.py``).
@@ -11,10 +11,8 @@ recurrence of the hierarchy, and S1's chunked solve.
   (checked against a numpy replica of them); XLA's CPU backend contracts
   ``d - w * carry`` into one fused multiply-add, so against the JAX
   function itself it agrees within a few float ulps of ``max|x|``.
-* A numpy emulation of ``csrc/tridiag.cu`` (chunks started early from a
-  guess, the checks, the walks) equals the plain version bit for bit,
-  also where short overlaps force walks and on data with zeros, -0 and
-  NaN.
+* S1's tiled schedule is emulated and held against the plain version
+  in ``test_torch_s1_tiled.py``.
 * End to end (``test_torch_longdims_e2e.py``), each package decodes the
   other's containers within the bound, with the same container sizes
   and header fields.
@@ -273,7 +271,7 @@ def _diag_off(h):
 
 
 # ---------------------------------------------------------------------------
-# the solve: the plain version and S1's algorithm
+# the solve: the plain version
 # ---------------------------------------------------------------------------
 
 def _replica(b, offdiag, divisors):
@@ -321,98 +319,6 @@ def test_mass_solve_plain_matches_jax(dtype, uniform):
             == got.tobytes()
 
 
-def _bits(a):
-    return a.view(np.int32 if a.dtype == np.float32 else np.int64)
-
-
-def _s1_emulation(b, offdiag, divisors, chunk, overlap):
-    """csrc/tridiag.cu in numpy on (n, m) ``b``: the chunks' sweeps from
-    their guesses, then the checks and walks, forward and then backward
-    (the warps' batches of 32 chunks are a schedule, not arithmetic)."""
-    w, off, div = ttd.solve_tables(offdiag, divisors,
-                                   torch.from_numpy(b).dtype)
-    n, m = b.shape
-    nchunks = -(-n // chunk)
-    dd = np.empty_like(b)
-    x = np.empty_like(b)
-    probe = np.empty((nchunks, m), dtype=b.dtype)
-    for c in range(nchunks):
-        s, e = c * chunk, min(n, (c + 1) * chunk)
-        p = s - overlap if s > overlap else 0
-        d = b[p].copy()
-        if p == s:
-            dd[s] = d
-        for i in range(p + 1, e):
-            if i == s:
-                probe[c] = d
-            d = b[i] - w[i - 1] * d
-            if i >= s:
-                dd[i] = d
-    for j in range(m):
-        walked = 0
-        for c in range(1, nchunks):
-            i = c * chunk
-            if i <= walked or _bits(probe[c, j]) == _bits(dd[i - 1, j]):
-                continue
-            prev = dd[i - 1, j]
-            while i < n:
-                v = b[i, j] - w[i - 1] * prev
-                if _bits(v) == _bits(dd[i, j]):
-                    break
-                dd[i, j] = prev = v
-                i += 1
-            walked = i
-    for c in range(nchunks):
-        s, e = c * chunk, min(n, (c + 1) * chunk)
-        p = min(e - 1 + overlap, n - 1)
-        xv = dd[p] / div[p]
-        if p == e - 1:
-            x[p] = xv
-        for i in range(p - 1, s - 1, -1):
-            if i == e - 1:
-                probe[c] = xv
-            xv = (dd[i] - off[i] * xv) / div[i]
-            if i < e:
-                x[i] = xv
-    for j in range(m):
-        walked = n
-        for c in range(nchunks - 2, -1, -1):
-            i = (c + 1) * chunk - 1
-            if i >= walked or _bits(probe[c, j]) == _bits(x[i + 1, j]):
-                continue
-            prev = x[i + 1, j]
-            while i >= 0:
-                v = (dd[i, j] - off[i] * prev) / div[i]
-                if _bits(v) == _bits(x[i, j]):
-                    break
-                x[i, j] = prev = v
-                i -= 1
-            walked = i
-    return x
-
-
-@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
-@pytest.mark.parametrize("chunk,overlap", [(64, 64), (50, 1), (37, 3),
-                                           (700, 64), (701, 64)], ids=str)
-def test_s1_algorithm_bit_for_bit(dtype, chunk, overlap):
-    n = 701
-    lev = Hierarchy((n,), coordinates=[np.sort(
-        np.random.default_rng(0).uniform(0, 1, n))]).dims[0][-1]
-    rng = np.random.default_rng(1)
-    b = rng.standard_normal((n, 5)).astype(dtype)
-    b[:, 1] = 0.0                    # a line of zeros
-    b[::3, 2] = -0.0                 # signed zeros
-    b[300, 3] = np.nan               # NaN from node 300 on, and back
-    b[:, 4] *= 1e-30                 # small values
-    with np.errstate(invalid="ignore"):
-        got = _s1_emulation(b, lev.offdiag, lev.divisors, chunk, overlap)
-    want = ttd.mass_solve_plain(torch.from_numpy(b), lev.offdiag,
-                                lev.divisors, 0).numpy()
-    fin = np.isfinite(want)
-    assert np.array_equal(np.isfinite(got), fin)
-    assert _bits(got[fin]).tobytes() == _bits(want[fin]).tobytes()
-
-
 @pytest.mark.parametrize("n,blocks", [(280953867, 1), (1 << 29, 1),
                                       ((1 << 29) + 1, 2)], ids=str)
 def test_one_domain_fits_one_k2_launch(n, blocks):
@@ -424,14 +330,6 @@ def test_one_domain_fits_one_k2_launch(n, blocks):
     levels = dyadic_num_levels(longest)
     levels += (1 << levels) + 1 != longest
     assert levels + 1 <= bk.SEGMENT_CAPACITY
-
-
-def test_chunk_length():
-    assert ttd.chunk_length(33, 1 << 20) == 33          # one chunk a line
-    assert ttd.chunk_length(4097, 8481) == 257          # 16 chunks a line
-    assert ttd.chunk_length(100, 1) == 100              # under 256 nodes
-    c = ttd.chunk_length((1 << 28) + 1, 1)              # a 1-D series
-    assert -(-((1 << 28) + 1) // c) <= 1 << 17 and c >= 256
 
 
 # ---------------------------------------------------------------------------
