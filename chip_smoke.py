@@ -14,8 +14,10 @@ on the flat PYRAMID stream; the default per-group codec at 128^3; the
 and LEVEL_BLOCKS layouts and the SINGLEDIM and HYBRID decompositions;
 then the host losslesses and second stages, MGARD-ROI, MGARD-QOI and
 MDR; then reference MGARD buffers (MGARD-X at 513^3, the CPU format,
-MDR-X directories) and the two ZFP codecs; then long dims, over 4096 nodes, whose correction solves with S1;
-then a 1024^3 field split into blocks), checks every result, and prints
+MDR-X directories) and the two ZFP codecs; then long dims, over 4096
+nodes, whose correction solves with S1; then an unstructured tetrahedral
+mesh of 2,146,689 nodes; then a 1024^3 field split into blocks and the
+sharded compressor; then the command line), checks every result, and prints
 the kernels' JSON line, the card's line and a last line ``{"ok": true,
 "device": {...}}``.  Any failure raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -36,7 +38,8 @@ Phases (each prints its wall time):
                  segment alone) and with a NaN and an overflow planted in
                  two segments, status 2 and 1 on exactly their chunks;
                  K4 timed in 21 turns of its 10 launches (median and
-                 quartiles), K9 and K16 in 21 turns too;
+                 quartiles), K1 (its levels), K5, K9 and K16 in 21 turns
+                 too;
                  K8 o K7 bit-identical to K5 and K10 o K9 to K6; K12 and
                  K11 on
                  the flat PYRAMID stream of the field (with an int32
@@ -81,7 +84,8 @@ Phases (each prints its wall time):
                  (``api.footprint_per_byte``), as in each phase below
                  that reports a peak;
   9. per-group - the default Config at 128^3 (under 2^22 values, so the
-                 per-group codec; no codec kernel launches);
+                 per-group codec; no codec kernel launches); its encode
+                 peak;
  10. float64   - the 512^3 field as float64, default Config: the wide
                  codec, 2048 groups a chunk, no kernel launches (every
                  kernel is float32 only, as in the JAX package);
@@ -106,7 +110,8 @@ Phases (each prints its wall time):
                  against their plain versions on its own stream (K12's
                  words the container's); HYBRID's K1 bit for bit at each
                  level its gate admits, on the encode's and the decode's
-                 inputs; HYBRID with two local levels' encode peak; S1
+                 inputs; HYBRID with two and three local levels' encode
+                 peaks; S1
                  bit for bit against its plain version at SINGLEDIM's
                  top-level solves (257, 512, 512) dim 0, (257, 257, 512)
                  dim 1, (257, 257, 257) dim 2, each timed in 21 turns
@@ -141,6 +146,7 @@ Phases (each prints its wall time):
                  API's decompress: the flat path's transform kernels,
                  error <= tol on ROI and buffer nodes and <= scalar * tol
                  elsewhere, the ratio against the per-group container's;
+                 compress_roi's peak device memory;
  16. qoi       - a box-mean functional: its component norms on the card
                  against the port's CPU ones at 65^3 (rtol 1e-9); at
                  512^3 S1 3 (L + 1) times, compress_qoi at s = 0 with
@@ -151,6 +157,7 @@ Phases (each prints its wall time):
                  path, K5 once), then at 1e-2, 1e-3 and 1e-4 each of the
                  greedy, inorder and roundrobin requests: its bytes, a
                  reconstruction within the tolerance (K6 once), its time;
+                 the refactor's peak device memory;
                  incremental 1e-2 then 1e-4 equal to a one-shot 1e-4
                  reconstruction bit for bit;
  18. interop   - reference MGARD buffers (``io/mgard_compat.py``), each
@@ -226,14 +233,23 @@ Phases (each prints its wall time):
                  30 segments in one launch); (c) (8192, 8192) at s = 0,
                  ||v - out||_0 by the port's norms in float64 (S1 at
                  every level of those), K11 bit for bit against its
-                 plain version on the container's top level; (d) the
+                 plain version on the container's top level, and the
+                 encode peak of that field as float64; (d) the
                  512^3 field with transform._SOLVER = "scan" (what
                  MGARD_TPU_SOLVER=scan sets at import): every level per
                  dim, the ratio within 1% of the default's, containers
                  cross-decoded with the default both ways, device times
                  in turns with the matmul correction, S1 bit for bit
                  against its plain version at every level (9 to 1);
- 23. multi-block - a 1024^3 float32 field (bench.py's kind, built in
+ 23. unstructured - a tetrahedral mesh on the card: the unit cube of
+                 8^3 cells, six tetrahedra each, refined 4 times
+                 (2,146,689 nodes, 12,582,912 tetrahedra; build time),
+                 a float64 smooth field of the coordinates plus noise:
+                 at s = 0 and s = 1 the MGTU round trip within 1e-3 in
+                 the s-norm, its ratio, decompose/recompose and
+                 compress/decompress times, the CG iterations of each
+                 level; no kernel launch; the phase's peak memory;
+ 24. multi-block - a 1024^3 float32 field (bench.py's kind, built in
                  float32 on the card slab by slab, its noise from a CUDA
                  generator), which the default Config splits into two
                  (512, 1024, 1024) slabs along dim 0: compress and
@@ -243,20 +259,28 @@ Phases (each prints its wall time):
                  sections are block 1's byte for byte; K1-K6 bit for
                  bit against their plain versions on that slab (K3's
                  stream the container's, K4 decoding it) and again at
-                 tolerance 1e-6, where the stream passes 2^28 words; the
-                 same container and output with one block in flight (the
-                 serial order) as at the default depth;
+                 tolerance 1e-6, where the stream passes 2^28 words;
                  the pinned host cache and the process's
                  peak RSS; one block's device encode/decode by CUDA
                  events and the encode's peak memory against the JAX
-                 estimate of 4.485x; REL 1e-4 (norm max|v| block by
-                 block); at 512^3 Variable slabs (dd_sizes 100, 200, 212)
+                 estimate of 4.485x; the 512^3 field in two slabs
+                 (max_block_bytes half its bytes), L-infinity 1e-3 with
+                 the same container and output with one block in flight
+                 (the serial order) as at the default depth, and REL
+                 1e-4 (norm max|v| block by block); at 512^3 Variable
+                 slabs (dd_sizes 100, 200, 212)
                  at s = 0, sqrt(sum_b ||v_b - out_b||_0^2) <= 1e-3, and
                  N-D blocks of 256^3 (K5/K6 once a block) at L-infinity;
                  a (16, 4096, 4096) field with adjust_shape, stored as
                  (256, 256, 4096) and returned in its own shape, K1-K6
                  bit for bit against their plain versions at that shape;
- 24. reference - card-versus-CPU cross-checks at 65^3 (matmul form
+ 25. sharded   - ShardedCompressor.for_global on cuda:0, the main field
+                 in two slabs, ABS and REL: each container the API's for
+                 the same slabs (phase 24's) byte for byte, with its
+                 launches; its round-trip step; then the planner peaks
+                 gathered above (float64 long dims, HYBRID k = 3,
+                 per-group, ROI, MDR), each against the planner's factor;
+ 26. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
                  K5/K6 with K13): the pyramids agree and each container
@@ -265,7 +289,14 @@ Phases (each prints its wall time):
                  (s = 1), segmented, each decode on the card through K11;
                  at 65^3 HYBRID with two local levels and on a nonuniform
                  grid, LEVEL_BLOCKS and HYBRID at s = 0, FINE in float64;
- 25. summary   - the kernels line (S1 after K1-K17), the card line, the
+ 27. cli       - ``python -m mgard_tpu_torch`` in three processes at
+                 once, started before phase 26 and run beside it: compress
+                 of the main field (its container the main path's byte
+                 for byte), decompress of that container (the output
+                 within 1e-3) and inspect (its header lines); the same
+                 compress and decompress through ``cli.main`` in this
+                 process, counted (K1-K6 as the main path);
+ 28. summary   - the kernels line (S1 after K1-K17), the card line, the
                  ok line.
 """
 
@@ -326,6 +357,12 @@ NO_PATH_KERNELS = SPLIT_KERNELS + CORE_KERNELS
 # The tolerance of the LPK correction against the matmul one, relative to
 # max|matmul correction| (tests/test_lpk_kernels.py's).
 LPK_REL_TOL = 1e-5
+# Encode peaks over their inputs' bytes, gathered from the phases that
+# run those calls and logged together by planner_summary: float64 long
+# dims, HYBRID with three local levels, the per-group codec (each held
+# to the planner's factor by encode_peak), the ROI compress and the MDR
+# refactor (which no planner governs).
+PLANNER_PEAKS = {}
 
 
 # Every log line also goes to chiprun_out/chip_smoke.log beside the
@@ -510,7 +547,8 @@ def check_kernels(hier, v):
                       + len(idx[l][0]) * len(idx[l][1]) * len(idx[l][2]))
                  for l, a in k1_inputs)
     add("extract_coarse_3d", "mgard_tpu_torch/csrc/extract.cu",
-        "mgard_tpu/ops/extract_kernels.py:84", err, cuda_ms(k1, 5),
+        "mgard_tpu/ops/extract_kernels.py:84", err,
+        turns_median(f"K1, {len(k1_inputs)} levels a turn", k1),
         cuda_ms(k1_plain, 3), nbytes, 0, library_ms=cuda_ms(k1_lib, 3))
     del k1_inputs
 
@@ -955,7 +993,7 @@ def check_stencil(hier, v):
     err = max_abs_diff(det, sk.gpk_detail_plain(hier, v, l))
     record(results, "gpk_detail", "mgard_tpu_torch/csrc/stencil.cu",
            "mgard_tpu/ops/stencil_kernels.py:356", err,
-           cuda_ms(lambda: sk.gpk_detail(hier, v, l), 10),
+           turns_median("K5", lambda: sk.gpk_detail(hier, v, l)),
            cuda_ms(lambda: sk.gpk_detail_plain(hier, v, l), 3), b5, o5)
     C = xk.extract_coarse_3d(hier, v, l)
     err = max_abs_diff(sk.gpk_prolong_add(hier, C, det, l),
@@ -1402,16 +1440,23 @@ def flat_path(v_host, main_counts):
 
 def pergroup_path(shape=(128, 128, 128), seed=SEED):
     """The default Config under 2^22 values: the per-group codec, plain
-    PyTorch on the card as the JAX package's is XLA."""
+    PyTorch on the card as the JAX package's is XLA; the encode's peak
+    memory."""
     import mgard_tpu_torch as mt
 
-    header, _, _, counts = drive("per-group path",
-                                 smooth_field_host(shape, seed), mt.Config())
+    import torch
+
+    v_host = smooth_field_host(shape, seed)
+    header, _, comp, counts = drive("per-group path", v_host, mt.Config())
     codec = [k for k in SEGMENTED_KERNELS[1:4] + FLAT_KERNELS + LPK_KERNELS
              + NO_PATH_KERNELS if counts[k]]
     if header.lossless != int(mt.Lossless.BITPLANE_GROUP) or codec:
         raise AssertionError(f"per-group path: lossless {header.lossless}, "
                              f"codec kernels launched {codec}")
+    v = torch.from_numpy(v_host).cuda()
+    PLANNER_PEAKS["per-group 128^3"] = encode_peak(
+        "per-group path", comp, v, header.tolerance)
+    del v
 
 
 def float64_path(v_host):
@@ -1570,7 +1615,7 @@ def layout_paths(v_host, flat_counts):
     does, K12/K11 once.  On each path K12 and K11 are held against their
     plain versions on its stream (:func:`check_stream_kernels`), on
     HYBRID K1, K5 and K6 on the global grid (:func:`check_hybrid_kernels`);
-    then the encode peak of HYBRID with two local levels."""
+    then the encode peaks of HYBRID with two and three local levels."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.io import format as fmt
@@ -1627,6 +1672,14 @@ def layout_paths(v_host, flat_counts):
     v = torch.from_numpy(v_host).cuda()
     results["HYBRID k = 2"] = (None, encode_peak("HYBRID k = 2", comp, v,
                                                  TOL))
+    # and with three: the planner's HYBRID factor must cover it too
+    comp = mt.get_compressor(SHAPE, np.float32, device="cuda",
+                             config=mt.Config(
+                                 decomposition=mt.Decomposition.HYBRID,
+                                 num_local_levels=3))
+    peak = encode_peak("HYBRID k = 3", comp, v, TOL)
+    results["HYBRID k = 3"] = (None, peak)
+    PLANNER_PEAKS["HYBRID k = 3 512^3"] = peak
     del v, comp
     torch.cuda.empty_cache()
     log(f"layout paths (ratio, encode peak x): {results}")
@@ -2118,7 +2171,8 @@ def roi_path(v_host, flat_counts):
     API's decompress with the launch counters around them (the flat
     path's transform kernels, no codec kernel); error <= tol on ROI and
     buffer nodes and <= scalar * tol on background ones; the ratio
-    against the per-group container of the same field."""
+    against the per-group container of the same field; compress_roi's
+    peak device memory."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.io import format as fmt
@@ -2127,9 +2181,14 @@ def roi_path(v_host, flat_counts):
 
     _build.reset_launches()
     t0 = time.perf_counter()
-    buf = roi.compress_roi(v_host, TOL, threshold=ROI_THRESHOLD,
-                           block=ROI_BLOCK)
+    with CallPeak() as peak:
+        buf = roi.compress_roi(v_host, TOL, threshold=ROI_THRESHOLD,
+                               block=ROI_BLOCK)
     t1 = time.perf_counter()
+    PLANNER_PEAKS["ROI compress 512^3"] = peak.factor(v_host.nbytes)
+    log(f"ROI path: compress_roi's peak device memory "
+        f"{peak.bytes} bytes = {peak.factor(v_host.nbytes):.4f}x the "
+        f"input's (no planner governs the call)")
     out = mt.decompress(buf)
     t2 = time.perf_counter()
     counts = _build.launch_counts()
@@ -2256,7 +2315,7 @@ def mdr_path(v_host, main_counts):
     request, the bytes it retrieves and a reconstruction (K6 once each)
     within the tolerance; incremental reconstruction (1e-2, then the
     streams for 1e-4 added) equal to a one-shot 1e-4 one, bit for bit;
-    refactor and reconstruct times."""
+    refactor and reconstruct times; the refactor's peak device memory."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.models import mdr
@@ -2267,9 +2326,16 @@ def mdr_path(v_host, main_counts):
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = mdr.mdr_refactor(hier, v, lossless=mdr.LOSSLESS_NONE)
+    with CallPeak() as peak:
+        res = mdr.mdr_refactor(hier, v, lossless=mdr.LOSSLESS_NONE)
     t1 = time.perf_counter()
     counts = _build.launch_counts()
+    # the input was on the card before the call: counted as in a planner
+    factor = peak.factor(v_host.nbytes, held=v_host.nbytes)
+    PLANNER_PEAKS["MDR refactor 512^3"] = factor
+    log(f"MDR refactor: peak device memory {peak.bytes + v_host.nbytes} "
+        f"bytes with the input = {factor:.4f}x the input's (no planner "
+        f"governs the call)")
     expect_launches("MDR refactor", counts, {
         "extract_coarse_3d": main_counts["extract_coarse_3d"],
         "gpk_detail": 1, "gpk_prolong_add": 0})
@@ -2586,9 +2652,8 @@ def check_block_kernels(label, comp, v, tol, sections=None,
 def multiblock_default(v):
     """The default compress of the 1024^3 field: two slabs along dim 0,
     L-infinity 1e-3, twice one slab's launches, block 1's sections those
-    of a one-domain compress of its slab, the same bytes at pipeline
-    depth 1 as at 2 (each timed once), one block's device times and peak
-    memory."""
+    of a one-domain compress of its slab, one block's device times and
+    peak memory."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch import api
@@ -2648,47 +2713,72 @@ def multiblock_default(v):
                              f"{nwords} words, not over 2^28")
     del vb, single
 
-    # one block in flight (the serial order, which no setting gives: the
-    # JAX package's rule keeps ndev + 1 = 2 on one card) against the
-    # round trip above at the default depth
-    saved = api._pipeline_depth
-    try:
-        api._pipeline_depth = lambda ndev: 1
-        t0 = time.perf_counter()
-        b = mt.compress(v, TOL)
-        t1 = time.perf_counter()
-        o = mt.decompress(b)
-        t2 = time.perf_counter()
-    finally:
-        api._pipeline_depth = saved
-    same = b == buf and np.array_equal(o, out)
-    log(f"1 block in flight: compress {1e3 * (t1 - t0):.3f} ms, decompress "
-        f"{1e3 * (t2 - t1):.3f} ms (host clock); container and output the "
-        f"default's: {same}")
-    del o
-    if not same:
-        raise AssertionError("depth 1 writes another container or output")
     del out
     torch.cuda.empty_cache()
     return counts
 
 
-def multiblock_rel(v):
-    """REL 1e-4 at L-infinity on the 1024^3 field, which the default
-    Config splits into two slabs: the norm is max|v| in float32, taken
-    block by block on the card."""
-    vmax = card_max_abs(v)
-    _, header, _, out, _, _, _ = round_trip("multi-block REL", v, REL_TOL,
-                                            mode="rel")
-    err = card_max_err(v, out)
-    bound = REL_TOL * header.norm
-    log(f"multi-block REL: norm {header.norm!r} (max|v| {vmax!r}), "
-        f"max|v - out| = {err!r} (bound {bound!r})")
-    if header.norm != float(np.float32(vmax)) or header.dd_nblocks != 2:
-        raise AssertionError(f"REL norm {header.norm} is not max|v| {vmax}, "
-                             f"or {header.dd_nblocks} blocks, not 2")
-    if not err <= bound:
-        raise AssertionError(f"REL error {err} exceeds {bound}")
+def two_slab_paths(v512):
+    """The main field cut into two slabs along dim 0 (``max_block_bytes``
+    half its bytes), L-infinity 1e-3 and REL 1e-4: the round trip at the
+    default pipeline depth and with one block in flight (the serial
+    order, which no setting gives: the JAX package's rule keeps ndev + 1
+    = 2 on one card), the same container and output; REL's norm max|v|
+    taken block by block on the card.  Returns {mode: (container,
+    launches of its compress)} for the sharded phase."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch import api
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build
+
+    cfg = mt.Config(max_block_bytes=v512.nbytes // 2)
+    bufs = {}
+    for mode, tol in (("abs", TOL), ("rel", REL_TOL)):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        buf = mt.compress(v512, tol, mode=mode, config=cfg)
+        t1 = time.perf_counter()
+        counts = _build.launch_counts()
+        out = mt.decompress(buf)
+        t2 = time.perf_counter()
+        bufs[mode] = (buf, counts)
+        header = fmt.read_container(buf)[0]
+        err = card_max_err(v512, out)
+        bound = tol * header.norm
+        log(f"two slabs {mode}: {len(buf)} bytes, ratio "
+            f"{v512.nbytes / len(buf)!r}, norm {header.norm!r}, max|v - out| "
+            f"= {err!r} (bound {bound!r}); API compress "
+            f"{1e3 * (t1 - t0):.3f} ms, decompress {1e3 * (t2 - t1):.3f} ms "
+            f"(host clock); the compress's launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if (header.dd_nblocks, header.dd_dim) != (2, 0) or not err <= bound:
+            raise AssertionError(f"two slabs {mode}: {header.dd_nblocks} "
+                                 f"blocks along {header.dd_dim}, error {err}")
+        if mode == "rel":
+            vmax = card_max_abs(v512)
+            if header.norm != float(np.float32(vmax)):
+                raise AssertionError(f"REL norm {header.norm} is not "
+                                     f"max|v| {vmax}")
+            continue
+        saved = api._pipeline_depth
+        try:
+            api._pipeline_depth = lambda ndev: 1
+            t0 = time.perf_counter()
+            b = mt.compress(v512, tol, config=cfg)
+            t1 = time.perf_counter()
+            o = mt.decompress(b)
+            t2 = time.perf_counter()
+        finally:
+            api._pipeline_depth = saved
+        same = b == buf and np.array_equal(o, out)
+        log(f"two slabs, 1 block in flight: compress {1e3 * (t1 - t0):.3f} "
+            f"ms, decompress {1e3 * (t2 - t1):.3f} ms (host clock); "
+            f"container and output the default depth's: {same}")
+        if not same:
+            raise AssertionError("depth 1 writes another container or "
+                                 "output")
+        del o, out
+    return bufs
 
 
 def variable_and_nd_blocks(v512):
@@ -2763,12 +2853,12 @@ def multiblock_paths(v512):
         f"in {time.perf_counter() - t0:.3f} s on the card, copied to the "
         f"host")
     counts = multiblock_default(v)
-    multiblock_rel(v)
     del v
+    two_slabs = two_slab_paths(v512)
     variable_and_nd_blocks(v512)
     adjust_shape_path()
     torch.cuda.empty_cache()
-    return counts
+    return counts, two_slabs
 
 
 # The long-dims phase: dims over transform._MATMUL_MAX_N = 4096 nodes take
@@ -3026,8 +3116,8 @@ def encode_peak(label, comp, v, bound):
     counted, as in the planner's estimate), the most bytes of tables
     held within it, and the tables it left on the card, which must be
     none; the peak must be within the planner's factor for this shape
-    and configuration (``api.footprint_per_byte``).  Returns the peak's
-    factor."""
+    and configuration (``api.footprint_per_byte``; the peak is logged
+    first).  Returns the peak's factor."""
     import torch
     from mgard_tpu_torch import api
 
@@ -3056,6 +3146,29 @@ def encode_peak(label, comp, v, bound):
         raise AssertionError(f"{label}: the encode's peak {peak / nbytes}x "
                              f"exceeds the planner's {planned}x")
     return peak / nbytes
+
+
+class CallPeak:
+    """The peak device memory that the calls inside the block allocated
+    beyond what the card held when it opened (``bytes``)."""
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        self.before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.bytes = torch.cuda.max_memory_allocated() - self.before
+        return False
+
+    def factor(self, nbytes, held=0) -> float:
+        """The peak over an input of ``nbytes``, with ``held`` bytes (an
+        input already on the card) counted in it."""
+        return (self.bytes + held) / nbytes
 
 
 def long_device_times(label, comp, v, header, sections):
@@ -3388,7 +3501,8 @@ def long_field():
 def long_square():
     """(c) (8192, 8192) at s = 0 through the API: the error by the port's
     norms in float64 on the card, S1 at every level of those; K11 against
-    its plain version on the container's top level."""
+    its plain version on the container's top level; the encode peak of
+    the field as float64."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.io import format as fmt
@@ -3421,6 +3535,13 @@ def long_square():
         raise AssertionError("long square: K11 differs from its plain "
                              "version")
     del exps, words, got
+    # the same field in float64: the per-dim form's encode peak with the
+    # wide codec
+    comp = mt.get_compressor(LONG_SQUARE, np.float64, s=0.0, device="cuda")
+    v64 = torch.from_numpy(v).cuda().double()
+    PLANNER_PEAKS["float64 (8192, 8192) s = 0"] = encode_peak(
+        "long square float64 s = 0", comp, v64, TOL)
+    del v64, comp
     torch.cuda.empty_cache()
 
 
@@ -4132,6 +4253,265 @@ def zfp_paths(v_host):
     torch.cuda.empty_cache()
 
 
+
+# The unstructured phase: the root mesh (a unit cube of 8^3 cells, six
+# tetrahedra each) refined UNST_L times, each tetrahedron into eight: 129^3
+# nodes and 3,072 * 8^4 tetrahedra at the finest level.
+UNST_ROOT = (9, 9, 9)
+UNST_L = 4
+UNST_NODES = 2146689
+UNST_TETS = 12582912
+# (s, tolerance of ||u - u'||_s) of its round trips
+UNST_CASES = ((0.0, 1e-3), (1.0, 1e-3))
+
+
+def unstructured_field(nodes, seed=SEED):
+    """A float64 smooth field of the node coordinates, sin(2 pi x)
+    cos(pi y) z + x y / 2, plus 1e-3 Gaussian noise from a CUDA generator
+    seeded with ``seed``."""
+    import torch
+    x, y, z = nodes.unbind(1)
+    g = torch.Generator(device=nodes.device).manual_seed(seed)
+    u = torch.sin(2 * math.pi * x) * torch.cos(math.pi * y) * z \
+        + 0.5 * x * y
+    return u + 1e-3 * torch.randn(u.shape, generator=g, dtype=u.dtype,
+                                  device=u.device)
+
+
+def unstructured_path():
+    """The unstructured mesh path on the card: the hierarchy built by
+    uniform refinement (vectorized, on the card), then for each of
+    UNST_CASES decompose and recompose timed alone, the MGTU compress and
+    decompress, the ratio, the CG iterations of each level's solve and
+    ||u - u'||_s <= tol by the hierarchy's norm; no kernel launches (the
+    per-group codec and the mesh operators are plain PyTorch); the peak
+    device memory of the phase."""
+    import torch
+    from mgard_tpu_torch import unstructured as un
+    from mgard_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    with CallPeak() as peak:
+        hier, t_build = synced_ms(lambda: un.UniformMeshHierarchy(
+            un.structured_tet_mesh(UNST_ROOT, device="cuda"), UNST_L))
+        fine = hier.meshes[-1]
+        tables, t_tables = synced_ms(
+            lambda: [m.incidence().width for m in hier.meshes])
+        log(f"unstructured: root {UNST_ROOT} refined {UNST_L} times in "
+            f"{t_build:.3f} ms (host clock, synchronized); nodes per level "
+            f"{[m.ndof for m in hier.meshes]}, tetrahedra "
+            f"{[m.elements.shape[0] for m in hier.meshes]}; incidence "
+            f"tables (widths {tables}) {t_tables:.3f} ms")
+        if (fine.ndof, fine.elements.shape[0]) != (UNST_NODES, UNST_TETS):
+            raise AssertionError(f"unstructured: {fine.ndof} nodes, "
+                                 f"{fine.elements.shape[0]} tetrahedra")
+        u = unstructured_field(fine.nodes)
+        nbytes = u.numel() * u.element_size()
+        results = {}
+        for s, tol in UNST_CASES:
+            coeffs, t_dec = synced_ms(hier.decompose, u)
+            iters = dict(hier.cg_iterations)
+            back, t_rec = synced_ms(hier.recompose, coeffs)
+            rt = float((back - u).abs().max())
+            del coeffs, back
+            buf, t_c = synced_ms(un.compress, hier, u, s, tol)
+            out, t_d = synced_ms(un.decompress, hier, buf)
+            err = hier.norm(u - torch.from_numpy(out).cuda(), s)
+            del out
+            ratio = nbytes / len(buf)
+            results[s] = (ratio, err)
+            log(f"unstructured s = {s}: {len(buf)} bytes, ratio {ratio!r}, "
+                f"||u - u'||_s = {err!r} (tolerance {tol}); decompose "
+                f"{t_dec:.3f} ms (CG iterations by level {iters}), "
+                f"recompose {t_rec:.3f} ms (max|u - R(D(u))| {rt!r}), "
+                f"compress {t_c:.3f} ms, decompress {t_d:.3f} ms (host "
+                f"clock, synchronized)")
+            if not err <= tol:
+                raise AssertionError(f"unstructured s = {s}: error {err} "
+                                     f"exceeds {tol}")
+        del u, hier, fine
+    counts = _build.launch_counts()
+    log(f"unstructured: peak device memory {peak.bytes} bytes "
+        f"(elements of the finest level alone {UNST_TETS * 4 * 8} bytes)")
+    expect_launches("unstructured", counts, {k: 0 for k in counts})
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_cli(*args):
+    """``python -m mgard_tpu_torch`` with ``args``, started from the
+    checkout's root; the process is killed at exit if it still runs."""
+    import atexit
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "mgard_tpu_torch",
+                             *map(str, args)], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    proc.t0 = t0
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_cli(proc):
+    """(the process's stdout, its host-clock seconds); raise unless it
+    exited 0."""
+    out, err = proc.communicate(timeout=300)
+    seconds = time.perf_counter() - proc.t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(proc.args)} exited "
+                             f"{proc.returncode}:\n{out}\n{err}")
+    return out.strip(), seconds
+
+
+def cli_start(v_host, main_buf):
+    """The CLI's processes, started here and left to run beside the phase
+    that follows (the reference checks, which time nothing): the main
+    field and the main path's container written to a temporary
+    directory, then ``python -m mgard_tpu_torch`` compress of the field,
+    decompress of that container and inspect of it, in three processes
+    at once.  :func:`cli_finish` checks that the compress wrote the same
+    container, so the decompress read what the CLI's compress writes."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    raw, comp, given, back = (os.path.join(tmp.name, n) for n in (
+        "raw.bin", "field.mgardtpu", "main.mgardtpu", "back.bin"))
+    v_host.tofile(raw)
+    with open(given, "wb") as f:
+        f.write(main_buf)
+    procs = (run_cli("compress", "-i", raw, "-o", comp, "--shape",
+                     *v_host.shape, "--dtype", "float32", "-e", TOL),
+             run_cli("decompress", "-i", given, "-o", back),
+             run_cli("inspect", "-i", given))
+    return tmp, raw, comp, back, procs
+
+
+def cli_finish(v_host, main_buf, started):
+    """The CLI (``python -m mgard_tpu_torch``) on the main field: the
+    processes of :func:`cli_start` (compress's container the main path's
+    byte for byte; decompress's output within the tolerance; inspect's
+    header lines); the same compress and decompress through ``cli.main``
+    in this process, with the launch counters around each (its output the
+    process's bit for bit)."""
+    import contextlib
+    import io
+    from mgard_tpu_torch import cli
+    from mgard_tpu_torch.io import format as fmt
+    from mgard_tpu_torch.ops import _build
+
+    tmp, raw, comp, back, (p_c, p_d, p_i) = started
+    shape = [str(n) for n in v_host.shape]
+    with tmp:
+        (said, t_c), (said_d, t_d), (said_i, t_i) = (
+            finish_cli(p) for p in (p_c, p_d, p_i))
+        with open(comp, "rb") as f:
+            same = f.read() == main_buf
+        counts = {}
+        for name, argv in (
+                ("compress", ["compress", "-i", raw, "-o", comp + ".2",
+                              "--shape", *shape, "-e", str(TOL)]),
+                ("decompress", ["decompress", "-i", comp + ".2", "-o",
+                                back + ".2"])):
+            _build.reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv)
+            counts[name] = {k: n for k, n in _build.launch_counts().items()
+                            if n}
+        out = np.fromfile(back, dtype=np.float32).reshape(v_host.shape)
+        err = card_max_err(v_host, out)
+        same_out = np.array_equal(
+            out, np.fromfile(back + ".2", dtype=np.float32
+                             ).reshape(v_host.shape))
+        del out
+    log(f"cli compress: {said!r} in {t_c:.3f} s; decompress: {said_d!r} in "
+        f"{t_d:.3f} s; inspect in {t_i:.3f} s (three processes at once, "
+        f"beside the reference phase; host clock); the compress's "
+        f"container is the main path's byte for byte: {same}; max|v - out| "
+        f"= {err!r} (tolerance {TOL}); in this process, launches {counts}, "
+        f"its output the process's bit for bit: {same_out}")
+    log("cli inspect: " + " | ".join(said_i.splitlines()))
+    levels = fmt.read_container(main_buf)[0].n_levels
+    if not (same and same_out and err <= TOL
+            and f"levels      : {levels}" in said_i.splitlines()):
+        raise AssertionError(f"cli: container {same}, output {same_out}, "
+                             f"error {err}, inspect {said_i!r}")
+    missing = [k for k in SEGMENTED_KERNELS
+               if not (counts["compress"].get(k)
+                       or counts["decompress"].get(k))]
+    if missing:
+        raise AssertionError(f"cli: not launched {missing}")
+    return counts
+
+
+def sharded_path(v_host, two_slabs):
+    """ShardedCompressor.for_global over one card, the main field in two
+    slabs along dim 0, ABS and REL: each container the API's for the same
+    two slabs (:func:`two_slab_paths`, which decoded them) byte for byte,
+    with the same launches; the ABS container decoded within 1e-3; the
+    compressor's round-trip step on the card."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.config import ErrorMode
+    from mgard_tpu_torch.ops import _build
+    from mgard_tpu_torch.parallel import ShardedCompressor
+
+    sc = ShardedCompressor.for_global(["cuda:0"], SHAPE, np.float32,
+                                      nblocks=2)
+    launches = None
+    for mode, tol in ((ErrorMode.ABS, TOL), (ErrorMode.REL, REL_TOL)):
+        ref, ref_counts = two_slabs[mode.name.lower()]
+        _build.reset_launches()
+        buf, t_s = synced_ms(sc.compress, v_host, tol, mode)
+        counts = _build.launch_counts()
+        err = None
+        if mode == ErrorMode.ABS:
+            out = mt.decompress(buf)
+            err = float(np.abs(out.astype(np.float64) - v_host).max())
+            del out
+        log(f"sharded {mode.name}: {len(buf)} bytes, compress "
+            f"{t_s:.3f} ms (host clock); the API's container for the "
+            f"same slabs byte for byte: {buf == ref}; max|v - out| = {err!r}; "
+            f"launches { {k: n for k, n in counts.items() if n} }")
+        if not (buf == ref and counts == ref_counts
+                and (err is None or err <= TOL)):
+            raise AssertionError(f"sharded {mode.name}: same bytes "
+                                 f"{buf == ref}, launches {counts} against "
+                                 f"{ref_counts}, error {err}")
+        launches = launches or counts
+        del buf
+    step = sc.roundtrip_step()
+    blocks = sc.shard_blocks(np.stack(np.split(v_host, 2, axis=0)))
+    _build.reset_launches()
+    (err, words), t_step = synced_ms(step, blocks, TOL)
+    log(f"sharded round-trip step: max|v - out| = {float(err)!r}, "
+        f"{int(words)} stream words, {t_step:.3f} ms (host clock, "
+        f"synchronized); launches "
+        f"{ {k: n for k, n in _build.launch_counts().items() if n} }")
+    if not float(err) <= TOL:
+        raise AssertionError(f"sharded round-trip step: error {err}")
+    del blocks, sc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def planner_summary():
+    """The encode peaks gathered for the planner's margins, each against
+    the factor the planner counts for that call (none for ROI and MDR)."""
+    from mgard_tpu_torch import api
+    import mgard_tpu_torch as mt
+    planned = {
+        "float64 (8192, 8192) s = 0": api.footprint_per_byte(
+            LONG_SQUARE, np.float64, mt.Config()),
+        "HYBRID k = 3 512^3": api.footprint_per_byte(SHAPE, np.float32,
+                                                     mt.Config(
+            decomposition=mt.Decomposition.HYBRID, num_local_levels=3)),
+        "per-group 128^3": api.footprint_per_byte((128,) * 3, np.float32,
+                                                  mt.Config())}
+    log(f"planner peaks (peak / input bytes; the planner's factor): "
+        f"{ {k: (v, planned.get(k)) for k, v in PLANNER_PEAKS.items()} }")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4257,11 +4637,21 @@ def main() -> int:
 
         with Phase("long dims"):
             s1_entry = long_dims(v_host, buf, prebuilt)
-    del buf, prebuilt
+
+    with Phase("unstructured"):
+        unstructured_path()
+    del prebuilt
 
     with Phase("multi-block"):
-        multiblock_paths(v_host)
+        _, two_slabs = multiblock_paths(v_host)
 
+    with Phase("sharded"):
+        sharded_counts = sharded_path(v_host, two_slabs)
+    del two_slabs
+    planner_summary()
+
+    # the CLI's processes run beside the reference checks
+    cli_run = cli_start(v_host, buf)
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
         reference_check((32, 256, 256), seed=2)
@@ -4272,6 +4662,10 @@ def main() -> int:
         snorm_reference_check((33, 65, 65), seed=5, s=1.0, uniform=False)
         layout_reference_check()
 
+    with Phase("cli"):
+        cli_counts = cli_finish(v_host, buf, cli_run)
+    del buf, cli_run
+
     # launches: each kernel's count on the path that runs it; K16/K17 run
     # on no path, so theirs is the main path's 0
     for k in kernels:
@@ -4280,6 +4674,8 @@ def main() -> int:
                          if k["name"] in TWO_PASS_KERNELS
                          else lpk_launches if k["name"] in LPK_KERNELS
                          else counts)[k["name"]]
+    log(f"launches of the new paths: cli {cli_counts}, sharded compress "
+        f"{sharded_counts}, unstructured none")
     # S1 (outside the K numbering): launches on the long series
     kernels.append(s1_entry)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -23,10 +23,11 @@ from .config import (Config, Decomposition, ErrorMode, Layout,  # noqa: E402
                      Lossless)
 from .hierarchy import Hierarchy  # noqa: E402
 from .models.compressor import Compressor, get_compressor  # noqa: E402
+from . import unstructured  # noqa: E402
 
 __all__ = ["compress", "decompress", "release_cache",
            "estimate_memory_footprint", "Compressor", "get_compressor",
            "Hierarchy", "Config", "Decomposition", "ErrorMode", "Layout",
-           "Lossless"]
+           "Lossless", "unstructured"]
 
 __version__ = "0.1.0"

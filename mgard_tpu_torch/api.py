@@ -122,16 +122,21 @@ FOOTPRINT_PER_BYTE = 3.9 * 1.15
 # level in the per-dim form (a dim over MGARD_TPU_MATMUL_MAX_N nodes, or
 # MGARD_TPU_SOLVER=scan), at the peak of the 1-D series of 280,953,867
 # values, the highest of the long-dim shapes measured (an upper bound
-# for the others); float64 data (512^3, the wide codec); and float32 at
-# 512^3 on each flat stream: the SINGLEDIM and HYBRID decompositions
-# (HYBRID at the higher of its peaks with one and two local levels) and
-# the PYRAMID, FINE and LEVEL_BLOCKS layouts; and a host lossless's
-# integer stream (HUFFMAN_*, NONE: the PYRAMID stream of PYRAMID_SEG).
-# The planner counts the highest that applies with the JAX package's
-# 1.15 margin.
+# for the others; float64 at (8192, 8192) and s = 0 peaked at 10.6667x,
+# within 1.15 times it); float64 data (512^3, the wide codec); float32
+# at 512^3 on each flat stream: the SINGLEDIM and HYBRID decompositions
+# (HYBRID at the highest of its peaks with one, two and three local
+# levels) and the PYRAMID, FINE and LEVEL_BLOCKS layouts; a host
+# lossless's integer stream (HUFFMAN_*, NONE: the PYRAMID stream of
+# PYRAMID_SEG); and the per-group codec (float32 under 2^22 values, or
+# a grouped lossless; at 128^3: its plain PyTorch passes over int64
+# rows).  The ROI compress and the MDR refactor, which no planner
+# governs, peaked at 12.1047x and 9.9602x of a 512^3 input.  The planner
+# counts the highest that applies with the JAX package's 1.15 margin.
 PEAK_PER_BYTE = {"per_dim": 10.1215, "wide": 9.1495, "singledim": 5.5039,
-                 "hybrid": 7.5251, "pyramid": 6.7386, "fine": 5.2500,
-                 "level_blocks": 5.5327, "host": 5.8655}
+                 "hybrid": 7.6001, "pyramid": 6.7386, "fine": 5.2500,
+                 "level_blocks": 5.5327, "host": 5.8655,
+                 "grouped": 16.8111}
 _LAYOUT_PEAK = {Layout.PYRAMID: "pyramid", Layout.FINE: "fine",
                 Layout.LEVEL_BLOCKS: "level_blocks"}
 
@@ -144,6 +149,10 @@ def footprint_per_byte(shape, dtype=np.float32,
     measured peak (:data:`PEAK_PER_BYTE`) that applies."""
     from .ops import transform
     cfg = config or Config()
+    f32 = np.dtype(dtype) == np.float32
+    grouped = cfg.lossless.grouped or (
+        cfg.adapt_lossless and cfg.lossless.chunked and f32
+        and int(np.prod([int(n) for n in shape])) < (1 << 22))
     peaks = []
     if transform._SOLVER != "matmul" \
             or any(int(n) > transform._MATMUL_MAX_N for n in shape):
@@ -158,6 +167,8 @@ def footprint_per_byte(shape, dtype=np.float32,
         peaks.append(PEAK_PER_BYTE[_LAYOUT_PEAK[cfg.layout]])
     if cfg.lossless in _HOST_LOSSLESS:
         peaks.append(PEAK_PER_BYTE["host"])
+    if grouped and f32:
+        peaks.append(PEAK_PER_BYTE["grouped"])
     return 1.15 * max(peaks) if peaks else FOOTPRINT_PER_BYTE
 
 

@@ -91,6 +91,14 @@ class Config:
     # Codec chunk width (groups per chunk) for new containers; 0 = the
     # default.  Containers record it, and decode honours the recorded one.
     chunk_groups: int = 0
+    # Log bitmask of utils/log.py (INFO 1, TIME 2, DBG 4, WARN 8, ERR 16);
+    # a nonzero value sets the process's level.
+    log_level: int = 0
+
+    def __post_init__(self):
+        if self.log_level:
+            from .utils import log as _log
+            _log.level = self.log_level
 
     def replace(self, **kw) -> "Config":
         """A copy with the fields ``kw`` changed."""

@@ -78,6 +78,8 @@ from ..ops.quantize import (TORCH_DTYPE, dequantize_blocks,
                             round_quantize, scale_blocks, scale_pyramid,
                             supremum_quantum)
 from ..ops.tridiag import along_axis, table_scope
+from ..utils import debug
+from ..utils.log import Timer
 
 _F64 = np.dtype(np.float64)
 # Small domains get per-group exponents (compressor.py:79-86) ...
@@ -448,6 +450,9 @@ class Compressor:
         exp_host, count_status = small.wait()
         count, status = (int(x) for x in count_status.tolist())
         _raise_status(status)
+        debug.check(0 <= count <= words.numel(),
+                    f"encode word count {count} exceeds capacity "
+                    f"{words.numel()}")
         if not 0 <= count <= words.numel():
             raise RuntimeError(f"encode word count {count} exceeds capacity "
                                f"{words.numel()}")
@@ -511,8 +516,9 @@ class Compressor:
         if mode == ErrorMode.REL:
             norm = float(self.norm(v))
             abs_tol = float(tolerance) * norm
-        sections = self.sections_from_outputs(
-            *self.encode_device(v, abs_tol))
+        with Timer("compress (device)", v.numel() * v.element_size()):
+            sections = self.sections_from_outputs(
+                *self.encode_device(v, abs_tol))
         header = fmt.Header(
             chunk_groups=self.chunk_groups,
             dtype=self.dtype, shape=self.hier.shape,
@@ -617,7 +623,11 @@ class Compressor:
 
     def decompress_parsed(self, header: fmt.Header,
                           sections: List[bytes]) -> np.ndarray:
-        return self._decode_parsed(header, sections).cpu().numpy()
+        out = self._decode_parsed(header, sections).cpu().numpy()
+        if debug.enabled():
+            debug.check(bool(np.isfinite(out).all()),
+                        "decoded output contains non-finite values")
+        return out
 
     def _stream_geometry(self, codec: str) -> Tuple[int, int, int, int]:
         """(exponent count, words per exponent unit, most planes a unit,

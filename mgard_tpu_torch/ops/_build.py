@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils import debug
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -191,7 +193,8 @@ def launch(name: str, *args, device) -> None:
     """Call one launcher under ``device`` (the device of the tensors it
     reads and writes), on that device's current stream, and raise on any
     launch error (a refused launch never runs, and a later synchronize
-    would not report it)."""
+    would not report it); in debug mode (``utils/debug.py``) also wait
+    for the kernel and raise, naming it, if it failed."""
     import torch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -199,6 +202,13 @@ def launch(name: str, *args, device) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
+    if debug.enabled():
+        # debug mode: wait for the kernel and raise at its fault
+        try:
+            torch.cuda.synchronize(device)
+        except RuntimeError as exc:
+            raise RuntimeError(f"{name}: the kernel failed on {device}: "
+                               f"{exc}") from exc
 
 
 def counted(fn):

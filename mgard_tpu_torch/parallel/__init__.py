@@ -1,4 +1,6 @@
-"""Domain decomposition of the port (``parallel/domain.py``)."""
+"""Domain decomposition (``parallel/domain.py``) and the sharded
+compressor (``parallel/sharded.py``) of the port."""
 
 from .domain import (DomainDecomposer, block_grid_blocks,  # noqa: F401
                      local_abs_tol)
+from .sharded import ShardedCompressor  # noqa: F401

@@ -245,8 +245,9 @@ def _jax_rule(shape, dtype, est, block_bytes, budget) -> int:
                          ids=str)
 def test_plan_blocks_matches_jax(shape, dtype, caps):
     """float32 shapes without a per-dim level take the JAX package's
-    estimate and plan.  float64 data and shapes with a dim over 4096
-    nodes (whose levels take the per-dim form) take the port's measured
+    estimate and plan.  float64 data, shapes with a dim over 4096
+    nodes (whose levels take the per-dim form) and float32 shapes under
+    2^22 values (the per-group codec) take the port's measured
     peak times 1.15: the JAX estimate scaled by that over its 3.9 x 1.15,
     planned by the JAX package's rule (the test's copy of the rule held
     against the JAX package's plan on its own estimate), never into
@@ -265,6 +266,8 @@ def test_plan_blocks_matches_jax(shape, dtype, caps):
     peaks = [api.PEAK_PER_BYTE["per_dim"]] if max(shape) > 4096 else []
     if dtype == np.float64:
         peaks.append(api.PEAK_PER_BYTE["wide"])
+    elif np.prod(shape) < 1 << 22:
+        peaks.append(api.PEAK_PER_BYTE["grouped"])
     if not peaks:
         assert api.footprint_per_byte(shape, dtype) == api.FOOTPRINT_PER_BYTE
         assert est == est_j and plan == plan_j
@@ -351,3 +354,24 @@ def test_corrupted_block_containers_rejected():
                 dataclasses.replace(header, **bad), sections), device="cpu")
     with pytest.raises(ValueError, match="multi-block"):
         api.compressor_for(header, "cpu")
+
+
+def test_planner_counts_the_per_group_peak():
+    """The per-group codec (float32 under 2^22 values with a chunked
+    lossless, or a grouped lossless at any size) is planned at its
+    measured peak; float64 and a domain the codec does not reach are
+    not."""
+    grouped = 1.15 * api.PEAK_PER_BYTE["grouped"]
+    assert api.footprint_per_byte((128,) * 3, np.float32) == grouped
+    assert api.footprint_per_byte((255, 128, 128), np.float32, mt.Config(
+        lossless=mt.Lossless.BITPLANE_LZ4)) == grouped
+    assert api.footprint_per_byte((512,) * 3, np.float32, mt.Config(
+        lossless=mt.Lossless.BITPLANE_GROUP)) == grouped
+    assert api.footprint_per_byte((256, 128, 128), np.float32) \
+        == api.FOOTPRINT_PER_BYTE
+    assert api.footprint_per_byte((128,) * 3, np.float32, mt.Config(
+        adapt_lossless=False)) == api.FOOTPRINT_PER_BYTE
+    assert api.footprint_per_byte((128,) * 3, np.float32, mt.Config(
+        lossless=mt.Lossless.NONE)) == 1.15 * api.PEAK_PER_BYTE["host"]
+    assert api.footprint_per_byte((128,) * 3, np.float64) \
+        == 1.15 * api.PEAK_PER_BYTE["wide"]
