@@ -17,7 +17,8 @@ MDR; then reference MGARD buffers (MGARD-X at 513^3, the CPU format,
 MDR-X directories) and the two ZFP codecs; then long dims, over 4096
 nodes, whose correction solves with S1; then an unstructured tetrahedral
 mesh of 2,146,689 nodes; then a 1024^3 field split into blocks and the
-sharded compressor; then the command line), checks every result, and prints
+sharded compressor; then the six examples, the command line and the
+autotuner's knob sweep), checks every result, and prints
 the kernels' JSON line, the card's line and a last line ``{"ok": true,
 "device": {...}}``.  Any failure raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -67,6 +68,19 @@ Phases (each prints its wall time):
   5. timing    - device encode/decode by CUDA events, with the GPK
                  kernels on and then off (the matmul form), and the host
                  parts by host clock;
+ 5a. codec widths - K2, K3 and K4 at chunk widths 1024 and 2048 (the
+                 main path runs 4096) on the main field's segments, each
+                 chain bit for bit against its plain versions and each
+                 kernel timed; then the main field through
+                 get_compressor(..., chunk_groups=C) at 1024, 2048 and
+                 4096: the header records C, 4096 writes the main path's
+                 container, each decodes within the tolerance, device
+                 encode/decode timed in turns with each width's ratio;
+                 the GPK-off timing above sets transform._GPK (what
+                 MGARD_TPU_GPK=0 sets at import);
+ 5b. codec pick - utils.autotune.autotune at 512^3 float32 (iters=1)
+                 into a temporary table: BITPLANE against BITPLANE_GROUP
+                 (GB/s and ratio), lookup and Config.tuned give the winner;
   6. two-pass  - the main path again with stencil_kernels._FUSED off
                  (what MGARD_TPU_GPK_FUSED=0 sets at import): K7-K10 once
                  each, K5/K6 not, the same container bytes as the main
@@ -280,6 +294,9 @@ Phases (each prints its wall time):
                  launches; its round-trip step; then the planner peaks
                  gathered above (float64 long dims, HYBRID k = 3,
                  per-group, ROI, MDR), each against the planner's factor;
+25a. examples  - the six examples/torch_*.py run in this process on the
+                 card at their default sizes, each raising if an error
+                 exceeds its bound;
  26. reference - card-versus-CPU cross-checks at 65^3 (matmul form
                  only; each of the three flat paths too) and
                  (32, 256, 256) (K5/K6 on the card, then K7-K10, then
@@ -296,6 +313,18 @@ Phases (each prints its wall time):
                  within 1e-3) and inspect (its header lines); the same
                  compress and decompress through ``cli.main`` in this
                  process, counted (K1-K6 as the main path);
+27a. sweep     - utils.autotune.sweep_knobs at 256^3 float32 over
+                 SWEEP_GRID, one `python -m mgard_tpu_torch.utils.autotune
+                 probe` process a candidate, started before phase 24 and
+                 run beside phases 24-27 (its readings contended:
+                 recorded, not judged; every candidate must give one),
+                 into a temporary table; then one fresh process
+                 under MGARD_TPU_AUTOTUNE=<that table> with
+                 MGARD_TPU_GPK=0 MGARD_TPU_XK=0 compresses and decompresses
+                 the main field with its counters: K1, K5 and K6 never,
+                 K2-K4 launched, the header's chunk_groups the table's
+                 default_knobs width, the container decoded here within
+                 the tolerance;
  28. summary   - the kernels line (S1 after K1-K17), the card line, the
                  ok line.
 """
@@ -306,6 +335,7 @@ import gc
 import json
 import math
 import os
+import pathlib
 import resource
 import struct
 import subprocess
@@ -557,20 +587,18 @@ def check_kernels(hier, v):
     C = bitplane.CHUNK_GROUPS
     inv_q = float(inverse_quantum(hier, TOL))
     quantum = float(supremum_quantum(hier, TOL))
-    ncs = [bitplane.num_chunks_tiled(p.numel(), C) for p in pyr]
+    ch = codec_chain(pyr, C, inv_q, quantum)
+    ncs = ch.ncs
     nvals = sum(p.numel() for p in pyr)
 
     # K2: one launch over the whole pyramid, as encode_segments calls it,
     # against the concatenated plain results; the one-segment wrapper
     # once per segment gives the same words
-    batched = bk.bp_quant_max_segments(pyr, ncs, C, inv_q)
-    err = max(max_abs_diff(g, w) for g, w in zip(
-        batched, bk.bp_quant_max_segments_plain(pyr, ncs, C, inv_q)))
     got = [bk.bp_quant_max(p, nc, C, inv_q) for p, nc in zip(pyr, ncs)]
-    if any(not torch.equal(torch.cat([g[k] for g in got]), batched[k])
-           for k in (0, 1)):
+    if any(not torch.equal(torch.cat([g[k] for g in got]), b)
+           for k, b in enumerate((ch.mx, ch.status))):
         raise AssertionError("K2 per segment differs from K2 batched")
-    if int(batched[1].max()):
+    if int(ch.status.max()):
         raise AssertionError("main-path data gave a nonzero codec status")
     check_quant_max_planted(pyr, ncs, C, inv_q)
     big = max(range(len(pyr)), key=lambda k: pyr[k].numel())
@@ -585,52 +613,80 @@ def check_kernels(hier, v):
         f"{per_segment_ms:.4f} ms; the largest segment ({pyr[big].numel()} "
         f"values, {ncs[big]} chunks) alone {largest_ms:.4f} ms")
     add("bp_quant_max", "mgard_tpu_torch/csrc/bp_codec.cu",
-        "mgard_tpu/ops/pallas_kernels.py:536", err, batched_ms,
+        "mgard_tpu/ops/pallas_kernels.py:536",
+        max(ch.err["K2"], ch.err["status"]), batched_ms,
         cuda_ms(lambda: bk.bp_quant_max_segments_plain(pyr, ncs, C, inv_q),
                 2),
         4 * nvals + 8 * sum(ncs), (OPS_QUANT + 1) * nvals)
 
-    e = bitplane._bit_length32(torch.cat([g[0] for g in got]))
-    offsets = bitplane._offsets(e)
+    spare = torch.zeros_like(ch.words)
+    add("bp_quant_condense", "mgard_tpu_torch/csrc/bp_codec.cu",
+        "mgard_tpu/ops/pallas_kernels.py:481", ch.err["K3"],
+        cuda_ms(lambda: ch.k3(bk.bp_quant_condense, ch.words), 5),
+        cuda_ms(lambda: ch.k3(bk.bp_quant_condense_plain, spare), 2),
+        4 * nvals + 4 * ch.rows * C + 8 * sum(ncs),
+        (OPS_QUANT + OPS_BUTTERFLY) * nvals)
+    del spare
+    check_split_kernels(add, pyr, ncs, C, inv_q, got, ch.words, ch.rows)
+
+    med = turns_median(f"K4, {len(pyr)} launches a turn",
+                       lambda: ch.k4(bk.bp_decode_condense_f32))
+    add("bp_decode_condense_f32", "mgard_tpu_torch/csrc/bp_codec.cu",
+        "mgard_tpu/ops/pallas_kernels.py:621", ch.err["K4"], med,
+        cuda_ms(lambda: ch.k4(bk.bp_decode_condense_f32_plain), 2),
+        4 * ch.rows * C + 4 * nvals + 8 * sum(ncs),
+        (OPS_BUTTERFLY + OPS_DEQUANT) * nvals)
+    log(f"codec inputs: {len(pyr)} segments, {nvals} values, {sum(ncs)} "
+        f"chunks, {ch.rows} stream rows of {C} words")
+    return results
+
+
+def codec_chain(pyr, C, inv_q, quantum):
+    """K2 over the flat segments ``pyr`` in one launch, then K3 and K4
+    once a segment, at chunk width C, each against its plain version on
+    the same inputs: K3's and K4's plain versions take the kernels'
+    exponents, offsets and stream, so that each error is its own
+    kernel's.  Returns the layout (``ncs``, ``starts``), the kernels'
+    results (``mx``, ``status``, ``e``, ``offsets``, ``rows``, ``words``,
+    ``stream``), the errors ``err`` (K2's maxima, its statuses, K3, K4)
+    and the runners ``k3(fn, buf)`` and ``k4(fn)`` that timings call."""
+    import types
+    import torch
+    from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
+
+    ncs = [bitplane.num_chunks_tiled(p.numel(), C) for p in pyr]
     starts = np.concatenate([[0], np.cumsum(ncs)]).astype(int)
+    segs = list(zip(pyr, ncs, starts))
+    mx, status = bk.bp_quant_max_segments(pyr, ncs, C, inv_q)
+    want = bk.bp_quant_max_segments_plain(pyr, ncs, C, inv_q)
+    err = {"K2": max_abs_diff(mx, want[0]),
+           "status": max_abs_diff(status, want[1])}
+    del want
+    e = bitplane._bit_length32(mx)
+    offsets = bitplane._offsets(e)
     rows = int(e.sum())
-    cap = sum(ncs) * 33 * C
-    words = torch.zeros(cap, dtype=torch.int32, device=v.device)
-    words_plain = torch.zeros_like(words)
 
     def k3(fn, buf):
-        for p, nc, a in zip(pyr, ncs, starts):
+        for p, nc, a in segs:
             fn(p, nc, C, inv_q, offsets[a:a + nc], e[a:a + nc], buf)
+    words = torch.zeros(sum(ncs) * 33 * C, dtype=torch.int32,
+                        device=pyr[0].device)
+    words_plain = torch.zeros_like(words)
     k3(bk.bp_quant_condense, words)
     k3(bk.bp_quant_condense_plain, words_plain)
-    err = max_abs_diff(words, words_plain)
-    add("bp_quant_condense", "mgard_tpu_torch/csrc/bp_codec.cu",
-        "mgard_tpu/ops/pallas_kernels.py:481", err,
-        cuda_ms(lambda: k3(bk.bp_quant_condense, words), 5),
-        cuda_ms(lambda: k3(bk.bp_quant_condense_plain, words_plain), 2),
-        4 * nvals + 4 * rows * C + 8 * sum(ncs),
-        (OPS_QUANT + OPS_BUTTERFLY) * nvals)
+    err["K3"] = max_abs_diff(words, words_plain)
     del words_plain
-    check_split_kernels(add, pyr, ncs, C, inv_q, got, words, rows)
-
     stream = words[:rows * C]
 
     def k4(fn):
         return [fn(stream, C, offsets[a:a + nc], e[a:a + nc], quantum,
-                   p.numel()) for p, nc, a in zip(pyr, ncs, starts)]
-    err = max(max_abs_diff(g, w) for g, w in
-              zip(k4(bk.bp_decode_condense_f32),
-                  k4(bk.bp_decode_condense_f32_plain)))
-    med = turns_median(f"K4, {len(pyr)} launches a turn",
-                       lambda: k4(bk.bp_decode_condense_f32))
-    add("bp_decode_condense_f32", "mgard_tpu_torch/csrc/bp_codec.cu",
-        "mgard_tpu/ops/pallas_kernels.py:621", err, med,
-        cuda_ms(lambda: k4(bk.bp_decode_condense_f32_plain), 2),
-        4 * rows * C + 4 * nvals + 8 * sum(ncs),
-        (OPS_BUTTERFLY + OPS_DEQUANT) * nvals)
-    log(f"codec inputs: {len(pyr)} segments, {nvals} values, {sum(ncs)} "
-        f"chunks, {rows} stream rows of {C} words")
-    return results
+                   p.numel()) for p, nc, a in segs]
+    err["K4"] = max(max_abs_diff(g, w) for g, w in
+                    zip(k4(bk.bp_decode_condense_f32),
+                        k4(bk.bp_decode_condense_f32_plain)))
+    return types.SimpleNamespace(
+        ncs=ncs, starts=starts, mx=mx, status=status, e=e, offsets=offsets,
+        rows=rows, words=words, stream=stream, err=err, k3=k3, k4=k4)
 
 
 def check_quant_max_planted(pyr, ncs, C, inv_q):
@@ -1200,7 +1256,7 @@ def time_parts(v_host, buf):
     import torch
     from mgard_tpu_torch.api import compressor_for
     from mgard_tpu_torch.io import format as fmt
-    from mgard_tpu_torch.ops import stencil_kernels as sk
+    from mgard_tpu_torch.ops import transform
 
     header, sections = fmt.read_container(buf)
     comp = compressor_for(header)
@@ -1221,19 +1277,104 @@ def time_parts(v_host, buf):
     out.cpu()
     t5 = time.perf_counter()
     del out
-    # on, then off: the gate refusing every level, so the matmul form
-    # runs
-    gate = sk.gpk_supported
+    # on, then off (what MGARD_TPU_GPK=0 sets at import), so the matmul
+    # form runs at every level
+    gpk = transform._GPK
     try:
         for on in (True, False):
-            sk.gpk_supported = gate if on else (lambda hier, l, A: False)
+            transform._GPK = on
             time_device(comp, v, exps, words,
                         "GPK on (K5/K6)" if on else "GPK off (matmul form)")
     finally:
-        sk.gpk_supported = gate
+        transform._GPK = gpk
     log(f"host: read-back + sections {1e3 * (t1 - t0):.3f} ms, container "
         f"write {1e3 * (t2 - t1):.3f} ms, container read + H2D "
         f"{1e3 * (t3 - t2):.3f} ms, decoded D2H {1e3 * (t5 - t4):.3f} ms")
+
+
+# The codec widths a sweep may choose (utils/autotune.py DEFAULT_GRID);
+# the main path runs the last
+CODEC_WIDTHS = (1024, 2048, 4096)
+
+
+def check_codec_widths(hier, v):
+    """K2, K3 and K4 at the chunk widths other than the main path's, on
+    the segments of the main field's pyramid: each :func:`codec_chain`
+    against its plain versions bit for bit (K2's maxima and statuses,
+    K3's stream, K4's values), each kernel timed by CUDA events."""
+    import torch
+    from mgard_tpu_torch.ops import bp_kernels as bk, transform
+    from mgard_tpu_torch.ops.quantize import inverse_quantum, \
+        supremum_quantum
+
+    pyr = [p.reshape(-1).contiguous() for p in transform.decompose(hier, v)]
+    inv_q = float(inverse_quantum(hier, TOL))
+    quantum = float(supremum_quantum(hier, TOL))
+    for C in CODEC_WIDTHS[:-1]:
+        ch = codec_chain(pyr, C, inv_q, quantum)
+        ms = (cuda_ms(lambda: bk.bp_quant_max_segments(pyr, ch.ncs, C,
+                                                       inv_q), 5),
+              cuda_ms(lambda: ch.k3(bk.bp_quant_condense, ch.words), 5),
+              cuda_ms(lambda: ch.k4(bk.bp_decode_condense_f32), 5))
+        err = ch.err
+        log(f"codec width {C}: {sum(ch.ncs)} chunks, {ch.rows} stream "
+            f"rows; K2 / K3 / K4 against their plain versions max_abs_err "
+            f"{err['K2']} / {err['K3']} / {err['K4']} (statuses "
+            f"{err['status']}; tolerance 0: bit-identical); K2 "
+            f"{ms[0]:.4f} ms (one launch), K3 {ms[1]:.4f} ms, K4 "
+            f"{ms[2]:.4f} ms ({len(pyr)} launches each; CUDA events)")
+        if max(err.values()) != 0.0:
+            raise AssertionError(f"codec width {C}: K2-K4 differ from their "
+                                 f"plain versions {err}")
+        del ch
+    del pyr
+    torch.cuda.empty_cache()
+
+
+def codec_width_paths(v_host, main_buf):
+    """The main field through ``get_compressor(..., chunk_groups=C)`` at
+    each width: the container records C (4096's is the main path's byte
+    for byte) and its sections decode on the card within the tolerance;
+    the device encode and
+    decode timed by CUDA events in turns (1024, 2048, 4096, 4096, 2048,
+    1024) with each width's ratio."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import format as fmt
+
+    v = torch.from_numpy(v_host).cuda()
+    runs = {}
+    for C in CODEC_WIDTHS:
+        comp = mt.get_compressor(SHAPE, np.float32, chunk_groups=C)
+        buf = comp.compress(v, TOL)
+        header, sections = fmt.read_container(buf)
+        exps, words = comp.stream_tensors(header, sections)
+        out = comp.decode_device(exps, words, TOL)
+        err = float((out.double() - v.double()).abs().max())
+        del out
+        log(f"codec width {C}: {len(buf)} bytes, ratio "
+            f"{v_host.nbytes / len(buf)!r}, max|v - out| = {err!r}, header "
+            f"chunk_groups {header.chunk_groups}")
+        # 2048 is the implicit on-wire width when the field is absent
+        if (header.chunk_groups or 2048) != C or not err <= TOL \
+                or (C == CODEC_WIDTHS[-1]) != (buf == main_buf):
+            raise AssertionError(f"codec width {C}: header "
+                                 f"{header.chunk_groups}, error {err}, the "
+                                 f"main path's bytes {buf == main_buf}")
+        runs[C] = (comp, exps, words, [], [], v_host.nbytes / len(buf))
+    for C in CODEC_WIDTHS + CODEC_WIDTHS[::-1]:
+        comp, exps, words, enc, dec, _ = runs[C]
+        enc.append(cuda_ms(lambda: comp.encode_device(v, TOL), 5))
+        dec.append(cuda_ms(lambda: comp.decode_device(exps, words, TOL), 5))
+    gb = v_host.nbytes / 1e9
+    for C, (_, _, _, enc, dec, ratio) in runs.items():
+        log(f"codec width {C}: device encode {enc[0]:.3f} / {enc[1]:.3f} ms "
+            f"({gb / np.mean(enc) * 1e3:.2f} GB/s), decode {dec[0]:.3f} / "
+            f"{dec[1]:.3f} ms ({gb / np.mean(dec) * 1e3:.2f} GB/s), "
+            f"encode + decode {gb / (np.mean(enc) + np.mean(dec)) * 1e3:.2f} "
+            f"GB/s, ratio {ratio!r} (two turns, CUDA events)")
+    del runs, v
+    torch.cuda.empty_cache()
 
 
 def two_pass_path(v_host, main_buf, main_counts):
@@ -4495,6 +4636,197 @@ def sharded_path(v_host, two_slabs):
     return launches
 
 
+SWEEP_SHAPE = (256, 256, 256)
+# The sweep's grid, cut from utils/autotune.py's DEFAULT_GRID to the
+# script's time (a probe process costs ~12 s, most of it start-up): one
+# chunk width other than the main path's 4096, so that the table's width
+# is not the default one, and GPK off.
+SWEEP_GRID = {"chunk_groups": [2048], "gpk": [0]}
+EXAMPLES = ("torch_basic_compression", "torch_interop",
+            "torch_multichip_sharded", "torch_progressive_mdr",
+            "torch_qoi_preservation", "torch_xgc_case_study")
+# What the fresh process under the swept table runs: the main field's
+# round trip with the launch counters around it
+FRESH_PROCESS = """
+import json, sys
+import numpy as np
+import mgard_tpu_torch as mt
+from mgard_tpu_torch.ops import _build, bitplane, transform
+v = np.fromfile(sys.argv[1], dtype=np.float32).reshape(%r)
+_build.reset_launches()
+buf = mt.compress(v, %r)
+out = mt.decompress(buf)
+counts = _build.launch_counts()
+open(sys.argv[2], "wb").write(buf)
+print(json.dumps({"launches": counts, "chunk_groups": bitplane.CHUNK_GROUPS,
+                  "gpk": transform._GPK, "xk": transform._XK,
+                  "err": float(np.abs(out.astype(np.float64) - v).max())}))
+"""
+
+
+def codec_pick(tmpdir):
+    """``autotune`` of the main shape (iters=1) into a temporary table:
+    BITPLANE against BITPLANE_GROUP, each one's device encode GB/s (host
+    clock around synchronized runs, the slope of one run over two) and
+    ratio on the tuner's own field; ``lookup`` and ``Config.tuned`` give
+    the winner."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.utils import autotune
+
+    path = pathlib.Path(tmpdir) / "pick.json"
+    t0 = time.perf_counter()
+    res = autotune.autotune(SHAPE, np.float32, iters=1, path=path)
+    seconds = time.perf_counter() - t0
+    picked = {mt.Lossless(k).name: r for k, r in res["results"].items()}
+    default = autotune._DEFAULT_PATH
+    try:
+        autotune._DEFAULT_PATH = path
+        tuned = mt.Config.tuned(SHAPE, np.float32)
+    finally:
+        autotune._DEFAULT_PATH = default
+    looked = autotune.lookup(SHAPE, np.float32, path=path)
+    log(f"codec pick at {SHAPE} float32 (key "
+        f"{autotune._key(SHAPE, np.float32)}): {picked}; best "
+        f"{res['best'].name} (balanced: GB/s x ratio); lookup "
+        f"{looked.lossless.name}, Config.tuned {tuned.lossless.name}; "
+        f"{seconds:.3f} s with the field's build (host clock)")
+    if looked.lossless != res["best"] or tuned.lossless != res["best"]:
+        raise AssertionError(f"codec pick: best {res['best']}, lookup "
+                             f"{looked}, Config.tuned {tuned}")
+    torch.cuda.empty_cache()
+
+
+def _sweep_and_fresh(tmpdir, raw):
+    """:func:`sweep_start`'s thread: the sweep, then the fresh process.
+    Returns what :func:`sweep_finish` checks; logs nothing."""
+    from mgard_tpu_torch.utils import autotune
+
+    path = pathlib.Path(tmpdir) / "sweep.json"
+    said = []
+    t0 = time.perf_counter()
+    res = autotune.sweep_knobs(SWEEP_SHAPE, np.float32, grid=SWEEP_GRID,
+                               path=path, log=said.append)
+    t_sweep = time.perf_counter() - t0
+    table = autotune.load_table(path)
+    env = {k: v for k, v in os.environ.items()
+           if k not in autotune.KNOB_ENV.values()}
+    env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               MGARD_TPU_AUTOTUNE=str(path), MGARD_TPU_GPK="0",
+               MGARD_TPU_XK="0")
+    out = os.path.join(tmpdir, "fresh.mgardtpu")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_PROCESS % (SHAPE, TOL),
+                           raw, out], env=env, capture_output=True,
+                          text=True, timeout=600)
+    t_fresh = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh process exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    with open(out, "rb") as f:
+        buf = f.read()
+    return (res, table, t_sweep, said,
+            json.loads(proc.stdout.strip().splitlines()[-1]), buf, t_fresh)
+
+
+def sweep_start(v_host):
+    """``sweep_knobs`` at SWEEP_SHAPE over SWEEP_GRID through real
+    ``probe`` subprocesses into a temporary table, then one fresh process
+    under ``MGARD_TPU_AUTOTUNE=<that table> MGARD_TPU_GPK=0
+    MGARD_TPU_XK=0`` that compresses and decompresses the main field with
+    its launch counters: on a host thread, started here and left to run
+    beside the phases that follow (multi-block, sharded, examples,
+    reference, cli:
+    host-clock times that are recorded, not judged), so its GB/s are read
+    beside them."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    raw = os.path.join(tmp.name, "raw.bin")
+    v_host.tofile(raw)
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(_sweep_and_fresh, tmp.name, raw)
+    pool.shutdown(wait=False)
+    return tmp, fut
+
+
+def sweep_finish(v_host, started):
+    """The sweep's winners and readings (contended: recorded, not
+    judged, but every candidate of SWEEP_GRID must have given one: a
+    probe process that failed fails the phase); the fresh process: K1,
+    K5 and K6 launched 0 times (GPK and
+    XK off), the codec kernels K2-K4 launched, its container's
+    chunk_groups the table's ``default_knobs`` width, decoded here within
+    the tolerance."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.io import format as fmt
+
+    tmp, fut = started
+    with tmp:
+        res, table, t_sweep, said, fresh, buf, t_fresh = fut.result()
+    for line in said:
+        log(f"sweep {line}")
+    log(f"sweep at {SWEEP_SHAPE} float32 over {SWEEP_GRID}: winners "
+        f"{res['winners']}, {t_sweep:.3f} s (one probe process a "
+        f"candidate, beside the phases from multi-block to cli; host "
+        f"clock); readings "
+        f"{res['results']}; default_knobs {table['default_knobs']}")
+    missing = [(k, c) for k, cs in SWEEP_GRID.items() for c in cs
+               if str(c) not in res["results"].get(k, {})]
+    failed = [line for line in said if "failed" in line]
+    if missing or failed:
+        raise AssertionError(f"sweep: no reading for {missing}; {failed}")
+    width = int(table["default_knobs"]["MGARD_TPU_CHUNK_GROUPS"])
+    header = fmt.read_container(buf)[0]
+    out = mt.decompress(buf)
+    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    del out
+    launches = {k: n for k, n in fresh["launches"].items() if n}
+    log(f"fresh process under the swept table with MGARD_TPU_GPK=0 "
+        f"MGARD_TPU_XK=0: {t_fresh:.3f} s (host clock); chunk_groups "
+        f"{fresh['chunk_groups']}, _GPK {fresh['gpk']}, _XK {fresh['xk']}, "
+        f"launches {launches}, its max|v - out| = {fresh['err']!r}; the "
+        f"container's header chunk_groups {header.chunk_groups} (table "
+        f"{width}), {len(buf)} bytes, ratio {v_host.nbytes / len(buf)!r}, "
+        f"decoded here max|v - out| = {err!r}")
+    off = [k for k in ("extract_coarse_3d", "gpk_detail", "gpk_prolong_add")
+           if fresh["launches"][k]]
+    codec = [k for k in ("bp_quant_max", "bp_quant_condense",
+                         "bp_decode_condense_f32") if not launches.get(k)]
+    if off or codec or fresh["gpk"] or fresh["xk"] \
+            or (header.chunk_groups or 2048) != width \
+            or fresh["chunk_groups"] != width or not err <= TOL \
+            or not fresh["err"] <= TOL:
+        raise AssertionError(f"fresh process: launched {off}, codec "
+                             f"kernels not launched {codec}, header width "
+                             f"{header.chunk_groups} against {width}, "
+                             f"errors {fresh['err']} / {err}")
+
+
+def example_paths():
+    """The six examples (``examples/torch_*.py``), each run in this
+    process by its ``main(["--device", "cuda"])`` at its default size;
+    each raises if an error exceeds its bound.  Their lines, times and
+    launches are logged."""
+    import contextlib
+    import io
+    import runpy
+    from mgard_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in EXAMPLES:
+        main = runpy.run_path(os.path.join(root, "examples",
+                                           name + ".py"))["main"]
+        said = io.StringIO()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            main(["--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        log(f"example {name}: {seconds:.3f} s (host clock); launches "
+            f"{nonzero(_build.launch_counts())}; said: "
+            + " | ".join(x for x in said.getvalue().splitlines() if x))
+
+
 def planner_summary():
     """The encode peaks gathered for the planner's margins, each against
     the factor the planner counts for that call (none for ROI and MDR)."""
@@ -4512,15 +4844,34 @@ def planner_summary():
         f"{ {k: (v, planned.get(k)) for k, v in PLANNER_PEAKS.items()} }")
 
 
+def pin_knobs():
+    """Every check runs at the default knobs: before the package is
+    imported (its ``apply_tuned`` seeds the knobs from an autotune table,
+    ``~/.cache/mgard_tpu_torch/autotune.json`` unless
+    ``MGARD_TPU_AUTOTUNE`` names another), drop every ``MGARD_TPU_*``
+    variable and name a table that does not exist, in a temporary
+    directory this run makes.  The processes it starts inherit both.
+    Returns the directory."""
+    import tempfile
+    for k in [k for k in os.environ if k.startswith("MGARD_TPU_")]:
+        del os.environ[k]
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["MGARD_TPU_AUTOTUNE"] = os.path.join(tmp.name,
+                                                    "autotune.json")
+    return tmp
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs only on a "
               "GPU", file=sys.stderr)
         return 2
+    no_table = pin_knobs()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import _build
+    from mgard_tpu_torch.utils import autotune
 
     # the main field (host numpy) builds on a thread beside the kernels
     field_pool = ThreadPoolExecutor(1)
@@ -4530,6 +4881,11 @@ def main() -> int:
             f"to the setup phase (imports)")
         card = card_line()
         log(f"card: {card}")
+        log(f"knobs at their defaults: no MGARD_TPU_* variable, the "
+            f"autotune table {autotune._DEFAULT_PATH} (absent: "
+            f"{not autotune._DEFAULT_PATH.exists()})")
+        if autotune._DEFAULT_PATH.exists():
+            raise AssertionError("the autotune table is not pinned")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
             f"{sys.version.split()[0]}, device "
             f"{torch.cuda.get_device_name(0)}")
@@ -4573,6 +4929,17 @@ def main() -> int:
 
     with Phase("timing"):
         time_parts(v_host, buf)
+
+    with Phase("codec widths"):
+        v = torch.from_numpy(v_host).cuda()
+        check_codec_widths(hier, v)
+        del v
+        codec_width_paths(v_host, buf)
+
+    with Phase("codec pick"):
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            codec_pick(tmp)
 
     with Phase("two-pass"):
         two_pass_launches = two_pass_path(v_host, buf, counts)
@@ -4642,6 +5009,9 @@ def main() -> int:
         unstructured_path()
     del prebuilt
 
+    # the sweep's processes run beside the phases from "multi-block" to
+    # "cli", the CLI's beside the reference checks
+    sweep_run = sweep_start(v_host)
     with Phase("multi-block"):
         _, two_slabs = multiblock_paths(v_host)
 
@@ -4650,7 +5020,9 @@ def main() -> int:
     del two_slabs
     planner_summary()
 
-    # the CLI's processes run beside the reference checks
+    with Phase("examples"):
+        example_paths()
+
     cli_run = cli_start(v_host, buf)
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
@@ -4665,6 +5037,10 @@ def main() -> int:
     with Phase("cli"):
         cli_counts = cli_finish(v_host, buf, cli_run)
     del buf, cli_run
+
+    with Phase("sweep"):
+        sweep_finish(v_host, sweep_run)
+    del sweep_run
 
     # launches: each kernel's count on the path that runs it; K16/K17 run
     # on no path, so theirs is the main path's 0
@@ -4688,6 +5064,7 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    no_table.cleanup()
     return 0
 
 

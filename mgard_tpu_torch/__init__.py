@@ -17,6 +17,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
+# Seed the environment from the autotune table's winners before the ops
+# modules import: they read their knobs (chunk width and tile, GPK, ...)
+# at import.  A variable the user set wins.
+from .utils.autotune import apply_tuned as _apply_tuned  # noqa: E402
+
+_apply_tuned()
+
 from .api import (compress, decompress, estimate_memory_footprint,  # noqa: E402
                   release_cache)
 from .config import (Config, Decomposition, ErrorMode, Layout,  # noqa: E402

@@ -103,3 +103,13 @@ class Config:
     def replace(self, **kw) -> "Config":
         """A copy with the fields ``kw`` changed."""
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def tuned(cls, shape, dtype, device=None) -> "Config":
+        """The Config of the autotune table for this (device, dtype,
+        size), ``device`` None meaning the card; the defaults where the
+        table has no entry.  The knobs read at import are applied
+        separately, by ``utils.autotune.apply_tuned``."""
+        from .utils import autotune
+        cfg = autotune.lookup(shape, dtype, device=device)
+        return cfg if cfg is not None else cls()

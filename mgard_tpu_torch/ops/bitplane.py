@@ -33,6 +33,7 @@ the plain parts compute in int64, where every uint32 is a value.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -49,15 +50,21 @@ __all__ = ["encode_segments", "decode_segments", "max_words_segments",
            "num_chunks64_tiled", "GROUP", "CHUNK_GROUPS", "CHUNK_TILE",
            "WIDE_CHUNK_GROUPS", "transpose32", "transpose32_mid"]
 
+# The JAX package's switches, read at import as it reads them (seeded by
+# ``utils/autotune.apply_tuned`` from a tuned table).
 # Groups per chunk == words per emitted plane row; a wire parameter that
 # containers record (flags&8 of the header).
-CHUNK_GROUPS = 4096
+CHUNK_GROUPS = int(os.environ.get("MGARD_TPU_CHUNK_GROUPS", "4096"))
 # Chunks per segment are padded to a multiple of this.  The GPU needs no
 # such tile, but the padding sets the length of the exponent array on
-# the wire, so it stays as in the JAX package.
-CHUNK_TILE = 4
-# The wide codec's own default chunk width (bitplane.py:215).
-WIDE_CHUNK_GROUPS = 2048
+# the wire, which no header records: a container written under another
+# MGARD_TPU_BP_CB decodes only under that value, in either package.
+CHUNK_TILE = int(os.environ.get("MGARD_TPU_BP_CB", "4"))
+if not 1 <= CHUNK_TILE <= 8:
+    raise ValueError("MGARD_TPU_BP_CB must be in [1, 8]")
+# The wide codec's own default chunk width (bitplane.py:219).
+WIDE_CHUNK_GROUPS = int(os.environ.get("MGARD_TPU_WIDE_CHUNK_GROUPS",
+                                       "2048"))
 
 _U32 = 0xFFFFFFFF
 _I32_MIN = -2 ** 31

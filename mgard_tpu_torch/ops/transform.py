@@ -75,6 +75,17 @@ _SOLVER = os.environ.get("MGARD_TPU_SOLVER", "matmul")
 # the dim-0 half of the correction with K13 where its gate admits the
 # level.
 _LPK = os.environ.get("MGARD_TPU_LPK", "0") == "1"
+# The JAX package's switches, read at import as it reads them: "0" turns
+# off the GPK stencil kernels (K5/K6, K7-K10) at every level, so the
+# interpolation takes the matmul or per-dim form; "0" turns off K1, so
+# the coarse nodes are taken by slices.  Not read, as they set TPU or XLA
+# forms the port does not have: MGARD_TPU_PALLAS_CODEC and
+# MGARD_TPU_DB_CONDENSE (the Pallas codec forms),
+# MGARD_TPU_MATMUL_PRECISION and MGARD_TPU_CORR_PRECISION (every matmul
+# stays full float32, TF32 off) and MGARD_TPU_CACHE_DIR (the JAX compile
+# cache).
+_GPK = os.environ.get("MGARD_TPU_GPK", "1") == "1"
+_XK = os.environ.get("MGARD_TPU_XK", "1") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +325,7 @@ def restrict(v: torch.Tensor, lev: DimLevel, axis: int) -> torch.Tensor:
 
 
 def _extract_old_all(hier: Hierarchy, A: torch.Tensor, l: int):
-    if xk.extract_supported(hier, l, A):
+    if _XK and xk.extract_supported(hier, l, A):
         return xk.extract_coarse_3d(hier, A, l)
     for d in _level_dims(hier, l):
         A = extract_old(A, hier.dims[d][l], d)
@@ -378,7 +389,7 @@ def decompose(hier: Hierarchy, v: torch.Tensor) -> List[torch.Tensor]:
     for l in range(hier.L, 0, -1):
         with table_scope():     # the level's tables leave the card after it
             C = _extract_old_all(hier, A, l)
-            if sk.gpk_supported(hier, l, A):
+            if _GPK and sk.gpk_supported(hier, l, A):
                 detail = sk.gpk_detail(hier, A, l)
             else:
                 detail = A - _prolong_all(hier, C, l)
@@ -403,7 +414,7 @@ def recompose_to_level(hier: Hierarchy, pyramid: Sequence[torch.Tensor],
         detail = pyramid[l]
         with table_scope():
             C = A - _correction(hier, detail, l)
-            if sk.gpk_supported(hier, l, detail):
+            if _GPK and sk.gpk_supported(hier, l, detail):
                 A = sk.gpk_prolong_add(hier, C, detail, l)
             else:
                 A = _prolong_all(hier, C, l) + detail
