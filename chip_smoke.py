@@ -56,6 +56,16 @@ Phases (each prints its wall time):
                  level-9 detail, bit-identical, with the dense dim-0
                  SGEMM it replaces timed beside it, and the LPK correction
                  against the matmul correction within 1e-5 * max|ref|;
+ 2a. stencil forms - ops/stencil.py (the shift-stencil forms, plain
+                 PyTorch, any rank and dtype) at level 9: its lerps in
+                 K5's dim order bit for bit against K5 and its plain
+                 version, detail_stencil and interp_all (dim order 0, 1,
+                 2) within 1e-6 * max|A| of them, on the main field and
+                 on phase 3's nonuniform grid; detail_stencil timed
+                 beside K5 and the matmul form; at level 8 (257^3, which
+                 K5's gate refuses) on the main field's coarse nodes,
+                 float32 and float64, against the matmul form within
+                 1e-6 * max|A| and 8 float64 ulps of max|A|;
   3. nonuniform- K5-K10 and K13 bit-identical to their plain versions,
                  and the two-pass compositions to K5/K6, on a grid with
                  random coordinates: with the weights of 0.5 of a uniform
@@ -124,8 +134,10 @@ Phases (each prints its wall time):
                  against their plain versions on its own stream (K12's
                  words the container's); HYBRID's K1 bit for bit at each
                  level its gate admits, on the encode's and the decode's
-                 inputs; HYBRID with two and three local levels' encode
-                 peaks; S1
+                 inputs; HYBRID with two, three, four and ten local
+                 levels' encode peaks (ten: the last count that shrinks
+                 the global grid, 10^3), each within the planner's
+                 factor; S1
                  bit for bit against its plain version at SINGLEDIM's
                  top-level solves (257, 512, 512) dim 0, (257, 257, 512)
                  dim 1, (257, 257, 257) dim 2, each timed in 21 turns
@@ -235,7 +247,14 @@ Phases (each prints its wall time):
                  K1 where its gate admits, K2 once, device times, and S1
                  at level 6 along each axis bit for bit against its
                  plain version, in TURNS turns beside a tensordot with
-                 the dense inverse (the kernels line's entry: dim 0); for (a)
+                 the dense inverse (the kernels line's entry: dim 0),
+                 and so again in float64 (the entry mass_solve_f64: dim
+                 0); the (b) field as float64 at s = inf and s = 0: the
+                 encode peaks against the planner's factor; float64 S1
+                 at each solve of the orthogonal components of a 256^3
+                 float64 field (every finite s-norm's but s = 0's, and
+                 QoI's), held against its plain version and timed in
+                 TURNS turns beside a float64 tensordot; for (a)
                  and (b) the encode's peak device memory and the tables
                  within it against the planner's factor, no table left
                  on the card by a call, the ratio and error those before
@@ -292,7 +311,7 @@ Phases (each prints its wall time):
                  in two slabs, ABS and REL: each container the API's for
                  the same slabs (phase 24's) byte for byte, with its
                  launches; its round-trip step; then the planner peaks
-                 gathered above (float64 long dims, HYBRID k = 3,
+                 gathered above (float64 long dims, HYBRID k = 3, 4 and 10,
                  per-group, ROI, MDR), each against the planner's factor;
 25a. examples  - the six examples/torch_*.py run in this process on the
                  card at their default sizes, each raising if an error
@@ -325,7 +344,8 @@ Phases (each prints its wall time):
                  K2-K4 launched, the header's chunk_groups the table's
                  default_knobs width, the container decoded here within
                  the tolerance;
- 28. summary   - the kernels line (S1 after K1-K17), the card line, the
+ 28. summary   - the kernels line (S1 and mass_solve_f64, float64 S1
+                 with QoI's launches, after K1-K17), the card line, the
                  ok line.
 """
 
@@ -387,9 +407,15 @@ NO_PATH_KERNELS = SPLIT_KERNELS + CORE_KERNELS
 # The tolerance of the LPK correction against the matmul one, relative to
 # max|matmul correction| (tests/test_lpk_kernels.py's).
 LPK_REL_TOL = 1e-5
+# ops/stencil.py against K5 in another dim order, and against the matmul
+# form, relative to max|A|: float32 (tests/test_torch_stencil.py's
+# DIM_ORDER_BOUND, about 8 ulps), and float64 in ulps.
+STENCIL_REL_TOL = 1e-6
+STENCIL_ULPS_F64 = 8
 # Encode peaks over their inputs' bytes, gathered from the phases that
 # run those calls and logged together by planner_summary: float64 long
-# dims, HYBRID with three local levels, the per-group codec (each held
+# dims ((8192, 8192) at s = 0, (64, 512, 8192) at s = inf and 0), HYBRID
+# with three, four and ten local levels, the per-group codec (each held
 # to the planner's factor by encode_peak), the ROI compress and the MDR
 # refactor (which no planner governs).
 PLANNER_PEAKS = {}
@@ -1092,15 +1118,11 @@ def check_stencil(hier, v):
     return results
 
 
-def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
-    """K5-K10 and K13 bit-identical to their plain versions on a grid
-    with sorted random coordinates, where the lerp weights are not 0.5
-    and the taps of R M are not those of a uniform grid."""
+def nonuniform_grid(shape=(64, 256, 256), seed=SEED):
+    """A hierarchy with sorted random coordinates (the end points 0 and
+    1) and normal float32 data on the card, both from ``seed``."""
     import torch
     import mgard_tpu_torch as mt
-    from mgard_tpu_torch.ops import extract_kernels as xk
-    from mgard_tpu_torch.ops import lpk_kernels as lk
-    from mgard_tpu_torch.ops import stencil_kernels as sk
 
     rng = np.random.default_rng(seed)
     coords = []
@@ -1109,9 +1131,21 @@ def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
         c[0], c[-1] = 0.0, 1.0
         coords.append(c)
     hier = mt.Hierarchy(shape, coordinates=coords)
-    l = hier.L
     A = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
                          ).cuda()
+    return hier, A
+
+
+def check_stencil_nonuniform(shape=(64, 256, 256), seed=SEED):
+    """K5-K10 and K13 bit-identical to their plain versions on a grid
+    with sorted random coordinates, where the lerp weights are not 0.5
+    and the taps of R M are not those of a uniform grid."""
+    from mgard_tpu_torch.ops import extract_kernels as xk
+    from mgard_tpu_torch.ops import lpk_kernels as lk
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    hier, A = nonuniform_grid(shape, seed)
+    l = hier.L
     if not sk.gpk_supported(hier, l, A):
         raise AssertionError(f"the GPK gate refuses level {l} of {shape}")
     det = sk.gpk_detail(hier, A, l)
@@ -1165,6 +1199,102 @@ def fma_detail(hier, A, l):
         lerp = (wt.double() * torch.roll(V, -1, d).double() + lo).float()
         V = torch.where(mt != 0, lerp, V)
     return A - V
+
+
+def stencil_form_errors(hier, A, l, label):
+    """``ops/stencil.py`` against K5 and its plain version at level ``l``:
+    the module's lerps taken in K5's dim order (2, 0, 1) must give K5's
+    detail bit for bit; ``detail_stencil`` (dim order 0, 1, 2) and
+    ``interp_all`` against K5 and its plain version within
+    STENCIL_REL_TOL * max|A|.  Returns K5's detail."""
+    from mgard_tpu_torch.ops import stencil as st
+    from mgard_tpu_torch.ops import stencil_kernels as sk
+
+    det = sk.gpk_detail(hier, A, l)
+    plain = sk.gpk_detail_plain(hier, A, l)
+    vecs = st._interp_vectors(hier, l)
+    V = A
+    for d in (2, 0, 1):
+        V = st._interp_dim(V, *vecs[d], d)
+    exact = (max_abs_diff(A - V, det), max_abs_diff(A - V, plain))
+    del V
+    ds = st.detail_stencil(hier, A, l)
+    near = {"detail_stencil - K5": max_abs_diff(ds, det),
+            "detail_stencil - K5 plain": max_abs_diff(ds, plain)}
+    del ds
+    near["interp_all - (A - K5)"] = max_abs_diff(st.interp_all(hier, A, l),
+                                                 A - det)
+    bound = STENCIL_REL_TOL * float(A.abs().max())
+    log(f"stencil forms, {label} level {l} {tuple(A.shape)}: in K5's dim "
+        f"order against K5 and its plain version max_abs_err {exact} "
+        f"(tolerance 0); in the module's order {near} (tolerance "
+        f"{bound:.3e} = {STENCIL_REL_TOL} * max|A|); supported "
+        f"{st.supported(hier, l)}")
+    if exact != (0.0, 0.0) or not max(near.values()) <= bound:
+        raise AssertionError(f"stencil forms, {label}: {exact} {near}")
+    return det
+
+
+def stencil_forms(hier, v):
+    """``ops/stencil.py`` (the shift-stencil forms, plain PyTorch) on the
+    main field: at level 9 against K5 (:func:`stencil_form_errors`), on
+    the nonuniform phase's grid too, ``detail_stencil`` timed beside K5
+    and the matmul form; then at the finest level that K5's gate refuses
+    and ``supported`` admits, on the main field's coarse nodes there, in
+    float32 and float64 against the matmul form (the transform's off the
+    gate), within STENCIL_REL_TOL * max|A| and STENCIL_ULPS_F64 float64
+    ulps of max|A|."""
+    import torch
+    from mgard_tpu_torch.ops import stencil as st
+    from mgard_tpu_torch.ops import stencil_kernels as sk, transform
+
+    l = hier.L
+    if not (st.supported(hier, l) and sk.gpk_supported(hier, l, v)):
+        raise AssertionError(f"level {l}: supported or K5's gate refuses")
+    stencil_form_errors(hier, v, l, "main field")
+    times = {"K5": cuda_ms(lambda: sk.gpk_detail(hier, v, l), 10),
+             "detail_stencil": cuda_ms(lambda: st.detail_stencil(hier, v, l),
+                                       5),
+             "matmul form": cuda_ms(lambda: v - transform._prolong_all(
+                 hier, transform._extract_old_all(hier, v, l), l), 3)}
+    log(f"stencil forms at level {l}: detail from A, ms (CUDA events; the "
+        f"matmul form with the coarse nodes' extraction) "
+        f"{ {k: round(t, 4) for k, t in times.items()} }")
+    torch.cuda.empty_cache()
+    hn, An = nonuniform_grid()
+    stencil_form_errors(hn, An, hn.L, "nonuniform grid")
+
+    # the level below the finest, on the finest level's coarse nodes
+    grid, top = hier, v
+    if not st.supported(hier, l - 1) or sk.gpk_structure_ok(hier, l - 1):
+        log(f"stencil forms: supported admits no level {l - 1} of the main "
+            f"field that K5's gate refuses; the nonuniform grid's level "
+            f"{hn.L - 1} instead")
+        grid, top = hn, An
+    k = grid.L - 1
+    A = transform._extract_old_all(grid, top, grid.L)
+    del An, top
+    got = {}
+    for A in (A, A.double()):
+        form = lambda: A - transform._prolong_all(
+            grid, transform._extract_old_all(grid, A, k), k)
+        err = max_abs_diff(st.detail_stencil(grid, A, k), form())
+        scale = float(A.abs().max())
+        bound = scale * (STENCIL_REL_TOL if A.dtype == torch.float32
+                         else STENCIL_ULPS_F64 * np.finfo(np.float64).eps)
+        got[str(A.dtype)] = (err, bound, round(cuda_ms(
+            lambda: st.detail_stencil(grid, A, k), 3), 4),
+            round(cuda_ms(form, 3), 4))
+        if not err <= bound:
+            raise AssertionError(f"stencil forms level {k} {A.dtype}: "
+                                 f"{err} against the matmul form")
+    log(f"stencil forms at level {k} {tuple(A.shape)} (K5's gate refuses "
+        f"it: {not sk.gpk_structure_ok(grid, k)}): detail_stencil against "
+        f"the matmul form, (max_abs_err, tolerance, detail_stencil ms, "
+        f"matmul form ms) {got}")
+    del A
+    torch.cuda.empty_cache()
+    return times
 
 
 def main_path(v_host):
@@ -1756,7 +1886,8 @@ def layout_paths(v_host, flat_counts):
     does, K12/K11 once.  On each path K12 and K11 are held against their
     plain versions on its stream (:func:`check_stream_kernels`), on
     HYBRID K1, K5 and K6 on the global grid (:func:`check_hybrid_kernels`);
-    then the encode peaks of HYBRID with two and three local levels."""
+    then the encode peaks of HYBRID with two, three, four and the most
+    local levels (:func:`hybrid_peak_levels`)."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.io import format as fmt
@@ -1813,18 +1944,32 @@ def layout_paths(v_host, flat_counts):
     v = torch.from_numpy(v_host).cuda()
     results["HYBRID k = 2"] = (None, encode_peak("HYBRID k = 2", comp, v,
                                                  TOL))
-    # and with three: the planner's HYBRID factor must cover it too
-    comp = mt.get_compressor(SHAPE, np.float32, device="cuda",
-                             config=mt.Config(
-                                 decomposition=mt.Decomposition.HYBRID,
-                                 num_local_levels=3))
-    peak = encode_peak("HYBRID k = 3", comp, v, TOL)
-    results["HYBRID k = 3"] = (None, peak)
-    PLANNER_PEAKS["HYBRID k = 3 512^3"] = peak
+    # and with three, four and the most local levels that shrink the
+    # global grid: the planner's HYBRID factor must cover each
+    for k in hybrid_peak_levels():
+        comp = mt.get_compressor(SHAPE, np.float32, device="cuda",
+                                 config=mt.Config(
+                                     decomposition=mt.Decomposition.HYBRID,
+                                     num_local_levels=k))
+        peak = encode_peak(f"HYBRID k = {k} (global grid "
+                           f"{comp._hybrid_hc.shape})", comp, v, TOL)
+        results[f"HYBRID k = {k}"] = (None, peak)
+        PLANNER_PEAKS[f"HYBRID k = {k} 512^3"] = peak
     del v, comp
     torch.cuda.empty_cache()
     log(f"layout paths (ratio, encode peak x): {results}")
     return results
+
+
+def hybrid_peak_levels():
+    """The local level counts whose HYBRID encode peaks are measured at
+    SHAPE: 3, 4 and the largest whose global grid is smaller than the one
+    before it (more local levels leave it as it is)."""
+    from mgard_tpu_torch.ops import transform_hybrid as th
+    k = 1
+    while th.coarse_shape(SHAPE, k + 1) != th.coarse_shape(SHAPE, k):
+        k += 1
+    return (3, 4, k)
 
 
 def check_singledim_s1(v_host):
@@ -2435,6 +2580,7 @@ def qoi_path(v_host, main_counts):
         raise AssertionError(f"QoI path: {solves} solves, error "
                              f"{abs(qv - qo)}")
     torch.cuda.empty_cache()
+    return solves
 
 
 def mdr_retrieve(rec, result, counts, start=None):
@@ -3384,12 +3530,13 @@ def s1_turns(b, lev, axis, label, plain=True):
     return x, same, ms
 
 
-def s1_record(b, lev, axis):
+def s1_record(b, lev, axis, name="S1 " + SOLVE_NAME):
     """S1 at one solve of the main path against its plain version: the
-    kernels-line entry (bit-identical, timed in turns) with a tensordot
-    (:func:`s1_library_ms`) as its library time."""
+    kernels-line entry ``name`` (bit-identical, timed in turns) with a
+    tensordot (:func:`s1_library_ms`) as its library time; float32 or
+    float64, as ``b`` is."""
     from mgard_tpu_torch.ops import tridiag
-    label = f"S1 on {tuple(b.shape)} axis {axis}"
+    label = f"S1 on {tuple(b.shape)} {b.dtype} axis {axis}"
     x, same, ms = s1_turns(b, lev, axis, label)
     err = 0.0 if same else float((x - tridiag.mass_solve_plain(
         b, lev.offdiag, lev.divisors, axis)).abs().max()) or float("nan")
@@ -3398,7 +3545,7 @@ def s1_record(b, lev, axis):
     del lib
     log(f"{label}: max|tensordot - S1| {lib_err:.3e}")
     results = []
-    record(results, "S1 " + SOLVE_NAME, "mgard_tpu_torch/csrc/tridiag.cuh",
+    record(results, name, "mgard_tpu_torch/csrc/tridiag.cuh",
            "mgard_tpu/ops/tridiag.py:69 (lax.scan, no Pallas kernel)", err,
            ms,
            cuda_ms(lambda: tridiag.mass_solve_plain(
@@ -3616,27 +3763,98 @@ def long_field():
     long_device_times("long field", comp, v, header, sections)
     check_block_kernels("long field kernels", comp, v, header.tolerance,
                         sections)
-    # S1 at level 6 along each axis, on the correction's own input
+    # S1 at level 6 along each axis, on the correction's own input, in
+    # float32 (the kernels line's S1) and in float64 (mass_solve_f64)
     l = hier.L
-    pyr = transform.decompose(hier, v)
-    B = pyr[l]
-    del pyr
-    for d in transform._level_dims(hier, l):
-        B = tridiag.mass_apply(B, hier.dims[d][l].h, d)
-        B = transform.restrict(B, hier.dims[d][l], d)
-    entries = []
-    for d in transform._level_dims(hier, l):
-        B = B.contiguous()
-        entry = s1_record(B, hier.dims[d][l - 1], d)
-        log(f"long field level {l} axis {d}: S1 on {tuple(B.shape)} "
-            f"{entry['ms']:.4f} ms, {entry['bound_ms'] / entry['ms']:.1%} "
-            f"of its byte bound")
-        entries.append(entry)
-        lev = hier.dims[d][l - 1]
-        B = tridiag.mass_solve(B, lev.offdiag, lev.divisors, d)
-    del B, v
+    top = transform.decompose(hier, v)[l]
+    entries = {}
+    for name, dtype in (("S1 " + SOLVE_NAME, torch.float32),
+                        ("mass_solve_f64", torch.float64)):
+        B = top.to(dtype)
+        for d in transform._level_dims(hier, l):
+            B = tridiag.mass_apply(B, hier.dims[d][l].h, d)
+            B = transform.restrict(B, hier.dims[d][l], d)
+        for d in transform._level_dims(hier, l):
+            B = B.contiguous()
+            entry = s1_record(B, hier.dims[d][l - 1], d, name)
+            log(f"long field level {l} axis {d}: S1 on {tuple(B.shape)} "
+                f"{B.dtype} {entry['ms']:.4f} ms, "
+                f"{entry['bound_ms'] / entry['ms']:.1%} of its byte bound, "
+                f"tensordot {entry['library_ms']:.4f} ms")
+            entries.setdefault(name, entry)
+            lev = hier.dims[d][l - 1]
+            B = tridiag.mass_solve(B, lev.offdiag, lev.divisors, d)
+        del B
+    del top
     torch.cuda.empty_cache()
-    return counts, entries[0]
+    # the field as float64 at s = inf and s = 0: the encode peaks
+    v64 = v.double()
+    del v
+    for s in (math.inf, 0.0):
+        comp = mt.get_compressor(LONG_FIELD, np.float64, s=s, device="cuda")
+        PLANNER_PEAKS[f"float64 {LONG_FIELD} s = {s}"] = encode_peak(
+            f"long field float64 s = {s}", comp, v64, TOL)
+        del comp
+    del v64
+    torch.cuda.empty_cache()
+    return counts, entries["S1 " + SOLVE_NAME], entries["mass_solve_f64"]
+
+
+def s1_norm_levels(shape=(256, 256, 256)):
+    """float64 S1 at every solve of the orthogonal components of a float64
+    field of ``shape`` (``norms.orthogonal_component_square_norms``: the
+    solves of every finite s-norm but s = 0, which is the L2 norm and
+    solves nothing, and of QoI's component norms): each held against its
+    plain version (:class:`SolveProbe`: bit for bit up to SOLVE_PLAIN_MAX
+    nodes, above that by its residual), then timed in TURNS queued turns
+    beside a float64 tensordot with the dense inverse."""
+    import torch
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import norms, tridiag
+
+    hier = mt.Hierarchy(shape)
+    u = smooth_field_card(shape, seed=SEED + 1).double()
+    with SolveProbe(hier, check=True, where=(norms,)) as probe:
+        norms.orthogonal_component_square_norms(hier, u)
+    probe.verdict(f"float64 S1 in the {shape} s-norm components")
+    inputs, saved = [], norms.mass_solve
+
+    def keep(b, offdiag, divisors, axis):
+        inputs.append((b.clone(), divisors, axis))
+        return saved(b, offdiag, divisors, axis)
+
+    norms.mass_solve = keep
+    try:
+        norms.orthogonal_component_square_norms(hier, u)
+    finally:
+        norms.mass_solve = saved
+    del u
+    rows, total = [], [0.0, 0.0, 0.0]
+    for b, divisors, axis in inputs:
+        lev = next(lv for lv in hier.dims[axis] if lv.divisors is divisors)
+        label = f"float64 S1 on {tuple(b.shape)} axis {axis}"
+        with tridiag.table_scope():
+            ms = turns_median(label, lambda: tridiag.mass_solve(
+                b, lev.offdiag, lev.divisors, axis))
+        lib_ms, lib = s1_library_ms(b, lev, axis, label)
+        del lib
+        bound = bound_ms(s1_bytes(b, axis), 0)[0]
+        for i, t in enumerate((ms, bound, lib_ms)):
+            total[i] += t
+        rows.append((tuple(b.shape), axis, round(ms, 4), round(bound, 4),
+                     f"{bound / ms:.1%}", round(lib_ms, 4)))
+    del inputs
+    torch.cuda.empty_cache()
+    log(f"float64 S1 in the {shape} s-norm components, {len(rows)} solves "
+        f"(shape, "
+        f"axis, median ms, bound ms with its tables, share, tensordot "
+        f"median ms): {rows}; in all S1 {total[0]:.4f} ms, bound "
+        f"{total[1]:.4f} ms ({total[1] / total[0]:.1%}), tensordot "
+        f"{total[2]:.4f} ms")
+    if len(rows) != len(probe.checked) or not rows:
+        raise AssertionError(f"float64 S1 norm levels: {len(rows)} solves "
+                             f"timed, {len(probe.checked)} checked")
+    return rows
 
 
 def long_square():
@@ -3754,7 +3972,8 @@ def long_dims(v_host, main_buf, prebuilt):
     torch.cuda.empty_cache()
     check_solve_layouts()
     counts = {"series": long_series(prebuilt)}
-    counts["field"], entry = long_field()
+    counts["field"], entry, entry64 = long_field()
+    s1_norm_levels()
     long_square()
     counts["scan"] = scan_solver(v_host, main_buf)
     mt.release_cache()
@@ -3762,7 +3981,7 @@ def long_dims(v_host, main_buf, prebuilt):
     log(f"long dims: S1 launches (a) {counts['series'][SOLVE_NAME]}, (b) "
         f"{counts['field'][SOLVE_NAME]}, (d) {counts['scan'][SOLVE_NAME]}")
     entry["launches"] = counts["series"][SOLVE_NAME]
-    return entry
+    return entry, entry64
 
 
 def snorm_reference_check(shape, seed, s, uniform=True, tol=1e-3):
@@ -4835,11 +5054,15 @@ def planner_summary():
     planned = {
         "float64 (8192, 8192) s = 0": api.footprint_per_byte(
             LONG_SQUARE, np.float64, mt.Config()),
-        "HYBRID k = 3 512^3": api.footprint_per_byte(SHAPE, np.float32,
-                                                     mt.Config(
-            decomposition=mt.Decomposition.HYBRID, num_local_levels=3)),
         "per-group 128^3": api.footprint_per_byte((128,) * 3, np.float32,
                                                   mt.Config())}
+    for k in hybrid_peak_levels():
+        planned[f"HYBRID k = {k} 512^3"] = api.footprint_per_byte(
+            SHAPE, np.float32, mt.Config(
+                decomposition=mt.Decomposition.HYBRID, num_local_levels=k))
+    for s in (math.inf, 0.0):
+        planned[f"float64 {LONG_FIELD} s = {s}"] = api.footprint_per_byte(
+            LONG_FIELD, np.float64, mt.Config())
     log(f"planner peaks (peak / input bytes; the planner's factor): "
         f"{ {k: (v, planned.get(k)) for k, v in PLANNER_PEAKS.items()} }")
 
@@ -4921,6 +5144,12 @@ def main() -> int:
         del v
         torch.cuda.empty_cache()
 
+    with Phase("stencil forms"):
+        v = torch.from_numpy(v_host).cuda()
+        stencil_forms(hier, v)
+        del v
+        torch.cuda.empty_cache()
+
     with Phase("nonuniform"):
         check_stencil_nonuniform()
 
@@ -4983,7 +5212,7 @@ def main() -> int:
             roi_path(v_host, flat_counts)
 
         with Phase("qoi"):
-            qoi_path(v_host, counts)
+            qoi_solves = qoi_path(v_host, counts)
 
         with Phase("mdr"):
             mdr_path(v_host, counts)
@@ -5003,7 +5232,7 @@ def main() -> int:
         del cpu_format, v_small
 
         with Phase("long dims"):
-            s1_entry = long_dims(v_host, buf, prebuilt)
+            s1_entry, s1_f64_entry = long_dims(v_host, buf, prebuilt)
 
     with Phase("unstructured"):
         unstructured_path()
@@ -5052,8 +5281,10 @@ def main() -> int:
                          else counts)[k["name"]]
     log(f"launches of the new paths: cli {cli_counts}, sharded compress "
         f"{sharded_counts}, unstructured none")
-    # S1 (outside the K numbering): launches on the long series
-    kernels.append(s1_entry)
+    # S1 (outside the K numbering): launches on the long series; in
+    # float64 on QoI's Riesz solve and norms
+    s1_f64_entry["launches"] = qoi_solves
+    kernels += [s1_entry, s1_f64_entry]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"script: {time.perf_counter() - T_START:.3f} s from its start to "

@@ -125,16 +125,18 @@ FOOTPRINT_PER_BYTE = 3.9 * 1.15
 # for the others; float64 at (8192, 8192) and s = 0 peaked at 10.6667x,
 # within 1.15 times it); float64 data (512^3, the wide codec); float32
 # at 512^3 on each flat stream: the SINGLEDIM and HYBRID decompositions
-# (HYBRID at the highest of its peaks with one, two and three local
-# levels) and the PYRAMID, FINE and LEVEL_BLOCKS layouts; a host
-# lossless's integer stream (HUFFMAN_*, NONE: the PYRAMID stream of
-# PYRAMID_SEG); and the per-group codec (float32 under 2^22 values, or
-# a grouped lossless; at 128^3: its plain PyTorch passes over int64
-# rows).  The ROI compress and the MDR refactor, which no planner
+# (HYBRID at the highest of its peaks with one, two, three, four and
+# ten local levels: ten, the last count that shrinks the global grid of
+# 512^3, peaked highest) and the PYRAMID, FINE and LEVEL_BLOCKS layouts;
+# float64 at (64, 512, 8192), s = inf and 0, peaked at 9.1919x, within
+# the per-dim entry; a host lossless's integer stream (HUFFMAN_*, NONE:
+# the PYRAMID stream of PYRAMID_SEG); and the per-group codec (float32
+# under 2^22 values, or a grouped lossless; at 128^3: its plain PyTorch
+# passes over int64 rows).  The ROI compress and the MDR refactor, which no planner
 # governs, peaked at 12.1047x and 9.9602x of a 512^3 input.  The planner
 # counts the highest that applies with the JAX package's 1.15 margin.
 PEAK_PER_BYTE = {"per_dim": 10.1215, "wide": 9.1495, "singledim": 5.5039,
-                 "hybrid": 7.6001, "pyramid": 6.7386, "fine": 5.2500,
+                 "hybrid": 7.6379, "pyramid": 6.7386, "fine": 5.2500,
                  "level_blocks": 5.5327, "host": 5.8655,
                  "grouped": 16.8111}
 _LAYOUT_PEAK = {Layout.PYRAMID: "pyramid", Layout.FINE: "fine",

@@ -3,8 +3,9 @@ port's own copy of ``mgard_tpu/io/huffman_native.py``).
 
 The C++ source is ``native/mgard_huffman.cpp`` (the format notes are
 there: the reference's ``src/compressors.cpp:316-419``).  It is built at
-first use with one ``g++`` call into ``mgard_tpu_torch/_build/``
-(``ops/_build.host_library``); ``native/*.so`` is never loaded or
+first use with one ``g++`` call into the build directory
+(``ops/_build.host_library``; ``utils/cache.py`` chooses the directory,
+``mgard_tpu_torch/_build/`` by default); ``native/*.so`` is never loaded or
 written.  A failed build raises.
 """
 

@@ -2,7 +2,8 @@
 ``mgard_tpu/io/lz4_native.py``).
 
 The C++ source is ``native/mgard_lz4.cpp``, built at first use like the
-Huffman codec (``io/huffman_native.py``) into ``mgard_tpu_torch/_build/``.
+Huffman codec (``io/huffman_native.py``) into the build directory
+(``utils/cache.py``; ``mgard_tpu_torch/_build/`` by default).
 
 Framing (the reference's batched-LZ4 stage: nvcomp chunks of
 ``lz4_block_size``, default 1 << 15): the payload is cut into blocks,

@@ -422,6 +422,25 @@ class Compressor:
             flat = bitplane.decode(exponents, words, self._nstream, C=C)
         return self._flat_to_array(flat, abs_tol)
 
+    def device_encode_fn(self):
+        """The device encode pipeline ``(v, tol) -> (exponents, words,
+        count, status)`` (``compressor.py:331``): the segmented, grouped,
+        chunked or wide stream this compressor's lossless picks, the
+        bitplane words also for a host lossless (its stages run after
+        them)."""
+        def encode(v: torch.Tensor, tol) -> Tuple[torch.Tensor, ...]:
+            with table_scope():
+                return self._encode_device(v, float(tol))
+        return encode
+
+    def device_decode_fn(self):
+        """The device decode pipeline ``(exponents, words, tol) ->
+        array`` (``compressor.py:338``) of this compressor's lossless."""
+        def decode(exponents: torch.Tensor, words: torch.Tensor, tol
+                   ) -> torch.Tensor:
+            return self.decode_device(exponents, words, float(tol))
+        return decode
+
     # ------------------------------------------------------------------
     # host-facing API
     # ------------------------------------------------------------------

@@ -8,18 +8,29 @@ loaded with :mod:`ctypes`.  No PyTorch headers, no
 The host codecs of ``native/`` (Huffman, LZ4) are built the same way,
 one ``g++`` call each (:func:`host_library`).
 
-The library goes into ``mgard_tpu_torch/_build/`` (git-ignored) at first
-use and is rebuilt whenever a source is newer than it.  A failed build
-raises.  Each kernel module registers its wrappers here with
-:func:`counted`, so that one place resets and reads every launch count.
+The libraries go into ``BUILD_DIR``, which :func:`set_build_dir`
+chooses (its argument, else ``MGARD_TPU_CACHE_DIR``, else
+``mgard_tpu_torch/_build/``, git-ignored; the empty string gives a
+temporary directory of the process) at the first build, never at
+import; ``utils/cache.enable_persistent_cache`` is its public name.
+Each library's file name carries a hash of its sources, its flags and
+its compiler (:func:`library_path`, :func:`host_library_path`): a
+library whose name is there is loaded, any other is built.  A failed
+build raises.
+Each kernel module registers its wrappers here with :func:`counted`, so
+that one place resets and reads every launch count.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import functools
+import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -28,13 +39,19 @@ from ..utils import debug
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-LIB_PATH = BUILD_DIR / "libmgard_tpu_torch.so"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+# the directory in use: set by set_build_dir, which the first build calls
+# while it is None
+BUILD_DIR = None
 NATIVE = _PKG.parent / "native"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
-_lock = threading.Lock()
+_lock = threading.RLock()
+_private = None        # this process's build directory while the cache is off
 build_seconds = None   # wall time of this process's build, None if reused
 _wrappers = []         # every kernel wrapper, in the order registered
 
@@ -79,26 +96,112 @@ def _nvcc() -> str:
                        "are built on the machine that runs them")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host codecs of mgard_tpu_torch "
+                       "are built on the machine that runs them")
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_id(program: str) -> str:
+    """A compiler's resolved path and what its ``--version`` prints (read
+    once a process for each path), so that a library another toolkit
+    built has another name."""
+    real = os.path.realpath(program)
+    try:
+        proc = subprocess.run([real, "--version"], capture_output=True,
+                              text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        raise RuntimeError(f"{program} --version failed: {exc}") from exc
+    return f"{real}\0{proc.returncode}\0{proc.stdout}"
+
+
 def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
 def compile_command(src: Path, obj: Path):
-    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-            "-fPIC", "-c", "-o", str(obj), str(src)]
+    return [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj),
+            str(src)]
 
 
 def link_command(out: Path, objs):
-    return [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(out),
+    return [_nvcc(), *ARCH_FLAGS, *LINK_FLAGS, "-o", str(out),
             *(str(o) for o in objs)]
 
 
-def _stale() -> bool:
-    if not LIB_PATH.exists():
-        return True
-    built = LIB_PATH.stat().st_mtime
-    return any(s.stat().st_mtime > built
-               for s in (*sources(), *CSRC.glob("*.cuh")))
+def _private_dir() -> Path:
+    """A temporary directory for this process alone, removed at exit
+    (made once; later calls return it)."""
+    global _private
+    if _private is None:
+        _private = Path(tempfile.mkdtemp(prefix="mgard_tpu_torch_build_"))
+        atexit.register(shutil.rmtree, _private, ignore_errors=True)
+    return _private
+
+
+def set_build_dir(path: str | None = None) -> str | None:
+    """Point the library builds at ``path`` (default:
+    ``MGARD_TPU_CACHE_DIR``, else :data:`DEFAULT_BUILD_DIR`) and set
+    ``BUILD_DIR`` to it.  Returns the directory used, or None when the
+    cache is disabled (the empty string) or the directory cannot be made;
+    builds then go to a temporary directory of this process.
+    Idempotent."""
+    global BUILD_DIR
+    if path is None:
+        path = os.environ.get("MGARD_TPU_CACHE_DIR", str(DEFAULT_BUILD_DIR))
+    if path:
+        try:
+            os.makedirs(path, exist_ok=True)
+        except OSError:
+            path = ""
+    with _lock:
+        if not path:
+            BUILD_DIR = _private_dir()
+            return None
+        BUILD_DIR = Path(path)
+        return path
+
+
+def build_dir() -> Path:
+    """``BUILD_DIR``, chosen by :func:`set_build_dir` from the setting at
+    the first call while it is None."""
+    if BUILD_DIR is None:
+        with _lock:
+            if BUILD_DIR is None:
+                set_build_dir()
+    return BUILD_DIR
+
+
+def _digest(compiler, flags, files) -> str:
+    """16 hex digits of a hash of the compiler (:func:`_compiler_id`), the
+    flags and each file's name and bytes (not its time)."""
+    h = hashlib.sha256(_compiler_id(compiler).encode())
+    h.update(repr(tuple(flags)).encode())
+    for f in files:
+        data = f.read_bytes()
+        h.update(f"\0{f.name}\0{len(data)}\0".encode())
+        h.update(data)
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """The kernel library's path in ``BUILD_DIR``, named by a hash of the
+    sources (``*.cu``, ``*.cuh``), the compiler that
+    :func:`compile_command` runs, the nvcc flags and ``ARCH_FLAGS``."""
+    compiler = compile_command(CSRC / "x.cu", CSRC / "x.o")[0]
+    key = _digest(compiler, (*ARCH_FLAGS, *NVCC_FLAGS, *LINK_FLAGS),
+                  [*sources(), *sorted(CSRC.glob("*.cuh"))])
+    return build_dir() / f"libmgard_tpu_torch-{key}.so"
+
+
+def host_library_path(name: str) -> Path:
+    """``native/<name>.cpp``'s library path in ``BUILD_DIR``, named by a
+    hash of the source, ``g++`` and its flags."""
+    key = _digest(_gxx(), GXX_FLAGS, [NATIVE / f"{name}.cpp"])
+    return build_dir() / f"lib{name}-{key}.so"
 
 
 def _run_all(commands) -> None:
@@ -118,13 +221,14 @@ def _run_all(commands) -> None:
 
 def build() -> Path:
     """Compile every source at once (one ``nvcc -c`` each), then link them
-    into a temporary name that is renamed, so that a concurrent reader
-    never sees half a library."""
+    into a temporary name that is renamed to :func:`library_path`, so
+    that a concurrent reader never sees half a library."""
     global build_seconds
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = library_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
-    tmp = BUILD_DIR / f".libmgard_tpu_torch.{pid}.so"
-    objs = [BUILD_DIR / f".{s.stem}.{pid}.o" for s in sources()]
+    tmp = out.parent / f".libmgard_tpu_torch.{pid}.so"
+    objs = [out.parent / f".{s.stem}.{pid}.o" for s in sources()]
     t0 = time.perf_counter()
     try:
         _run_all([compile_command(s, o) for s, o in zip(sources(), objs)])
@@ -135,24 +239,22 @@ def build() -> Path:
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
-    os.replace(tmp, LIB_PATH)
+    os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    return LIB_PATH
+    return out
 
 
 def host_library(name: str) -> Path:
     """``native/<name>.cpp`` built with one ``g++ -O3 -shared`` call into
-    ``_build/lib<name>.so`` when that is missing or older than the
-    source; a failed build raises.  ``native/*.so`` is neither read nor
-    written."""
+    :func:`host_library_path` unless a library of that name is there; a
+    failed build raises.  ``native/*.so`` is neither read nor written."""
     src = NATIVE / f"{name}.cpp"
-    out = BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    out = host_library_path(name)
+    if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o",
-           str(tmp)]
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.parent / f".lib{name}.{os.getpid()}.so"
+    cmd = [_gxx(), *GXX_FLAGS, str(src), "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -167,9 +269,10 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
+            path = library_path()
+            if not path.exists():
                 build()
-            handle = ctypes.CDLL(str(LIB_PATH))
+            handle = ctypes.CDLL(str(path))
             for name, args in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(args)

@@ -36,6 +36,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .bp_kernels import (GROUP, butterfly, bp_decode_condense,
@@ -48,7 +49,8 @@ __all__ = ["encode_segments", "decode_segments", "max_words_segments",
            "encode64", "decode64", "max_words", "max_words64",
            "num_chunks", "num_chunks_tiled", "num_chunks64",
            "num_chunks64_tiled", "GROUP", "CHUNK_GROUPS", "CHUNK_TILE",
-           "WIDE_CHUNK_GROUPS", "transpose32", "transpose32_mid"]
+           "WIDE_CHUNK_GROUPS", "encoded_nbytes", "transpose32",
+           "transpose32_mid"]
 
 # The JAX package's switches, read at import as it reads them (seeded by
 # ``utils/autotune.apply_tuned`` from a tuned table).
@@ -98,6 +100,14 @@ def max_words(n: int, C: int = 0) -> int:
     """Word capacity of the chunked stream of ``n`` values (33 rows a
     chunk; also a superset of the per-group stream's)."""
     return num_chunks_tiled(n, C) * (C or CHUNK_GROUPS) * (GROUP + 1)
+
+
+def encoded_nbytes(exponents, count) -> int:
+    """Total payload bytes given encoder outputs: a byte an exponent, four
+    a word (``bitplane.py:105``)."""
+    size = exponents.numel() if isinstance(exponents, torch.Tensor) \
+        else np.asarray(exponents).size
+    return int(size) + 4 * int(count)
 
 
 def num_chunks64(n: int, C: int = 0) -> int:

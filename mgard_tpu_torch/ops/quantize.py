@@ -51,9 +51,9 @@ from .transform import block_specs
 from .tridiag import along_axis
 
 __all__ = ["supremum_quantum", "inverse_quantum", "round_quantize",
-           "flat_quantum", "scale_pyramid", "dequantize_pyramid",
-           "scale_blocks", "quantize_blocks", "dequantize_blocks",
-           "TORCH_DTYPE"]
+           "flat_quantum", "scale_pyramid", "quantize_pyramid",
+           "dequantize_pyramid", "scale_blocks", "quantize_blocks",
+           "dequantize_blocks", "TORCH_DTYPE"]
 
 TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                np.dtype(np.float64): torch.float64}
@@ -110,6 +110,14 @@ def scale_pyramid(hier: Hierarchy, pyramid, s: float, tol: float):
             scaled = scaled * along_axis(w, blk, d)
         out.append(scaled)
     return out
+
+
+def quantize_pyramid(hier: Hierarchy, pyramid, s: float, tol: float,
+                     int_dtype=torch.int32):
+    """Dense pyramid levels quantized: :func:`scale_pyramid` rounded to
+    ``int_dtype`` (``quantize.py:116``)."""
+    return [round_quantize(blk, int_dtype)
+            for blk in scale_pyramid(hier, pyramid, s, tol)]
 
 
 def dequantize_pyramid(hier: Hierarchy, qpyramid, s: float, tol: float,

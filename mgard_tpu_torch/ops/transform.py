@@ -82,8 +82,8 @@ _LPK = os.environ.get("MGARD_TPU_LPK", "0") == "1"
 # forms the port does not have: MGARD_TPU_PALLAS_CODEC and
 # MGARD_TPU_DB_CONDENSE (the Pallas codec forms),
 # MGARD_TPU_MATMUL_PRECISION and MGARD_TPU_CORR_PRECISION (every matmul
-# stays full float32, TF32 off) and MGARD_TPU_CACHE_DIR (the JAX compile
-# cache).
+# stays full float32, TF32 off).  MGARD_TPU_CACHE_DIR is read by
+# utils/cache.py, where it names the directory of the built libraries.
 _GPK = os.environ.get("MGARD_TPU_GPK", "1") == "1"
 _XK = os.environ.get("MGARD_TPU_XK", "1") == "1"
 

@@ -157,3 +157,18 @@ def test_transform_matches_jax(shape, nonuniform, k, dtype):
     up, ud = tth.unflatten_hybrid(th, flat, shape, k)
     for a, b in zip(up + ud, tp + td):
         _close(a, b.numpy(), 0.0)
+
+
+def test_planner_hybrid_factor_covers_every_local_level_count():
+    """The planner's HYBRID factor is 1.15 times the highest HYBRID encode
+    peak measured on the card at 512^3 (local level counts 1-4 and 10,
+    the last that shrinks the global grid: 7.6379x at ten), one factor
+    for every count."""
+    from mgard_tpu_torch import api
+    assert api.PEAK_PER_BYTE["hybrid"] == 7.6379
+    assert {api.footprint_per_byte(
+        (512,) * 3, np.float32,
+        mt.Config(decomposition=mt.Decomposition.HYBRID, num_local_levels=k))
+        for k in (1, 3, 4, 10)} == {1.15 * 7.6379}
+    assert tth.coarse_shape((512,) * 3, 10) \
+        == tth.coarse_shape((512,) * 3, 11) != tth.coarse_shape((512,) * 3, 9)
