@@ -232,7 +232,10 @@ Phases (each prints its wall time):
                  walks forced (a small segment, a 1-node overlap, data
                  with zeros, signed zeros, a NaN and 1e-30 values; walks
                  in shared memory and re-solved segments both counted and
-                 > 0 in every case; check_solve_layouts):
+                 > 0 in every case with more than one segment a line),
+                 and float64 on each of its routes (short, lines, runs)
+                 at its own geometry on that data, NaN-aware, with its
+                 walks and blocks an SM logged (check_solve_layouts):
                  (a) a 1-D series of 280,953,867 values (one HACC
                  field of SDRBench; L = 29, 30 segments): the hierarchy's
                  build time (host work alone, built on a host thread
@@ -249,12 +252,15 @@ Phases (each prints its wall time):
                  plain version, in TURNS turns beside a tensordot with
                  the dense inverse (the kernels line's entry: dim 0),
                  and so again in float64 (the entry mass_solve_f64: dim
-                 0); the (b) field as float64 at s = inf and s = 0: the
-                 encode peaks against the planner's factor; float64 S1
-                 at each solve of the orthogonal components of a 256^3
-                 float64 field (every finite s-norm's but s = 0's, and
-                 QoI's), held against its plain version and timed in
-                 TURNS turns beside a float64 tensordot; for (a)
+                 0; each solve's route, blocks an SM and walks logged);
+                 the (b) field as float64 at s = inf and s = 0: the
+                 encode peaks against the planner's factor, and at
+                 s = inf its device encode and decode (CUDA events);
+                 float64 S1 at each solve of the orthogonal components
+                 of a 256^3 float64 field (every finite s-norm's but
+                 s = 0's, and QoI's), held against its plain version and
+                 timed in TURNS turns beside a float64 tensordot, with
+                 its route, blocks an SM and walks; for (a)
                  and (b) the encode's peak device memory and the tables
                  within it against the planner's factor, no table left
                  on the card by a call, the ratio and error those before
@@ -3556,9 +3562,11 @@ def s1_record(b, lev, axis, name="S1 " + SOLVE_NAME):
 
 def planted_lines(shape, axis, dtype, seed):
     """Normal data along ``axis`` with its first lines planted: a line of
-    zeros, signed zeros at every third node, a NaN at node 300 and
-    values scaled to 1e-30 (a 1-D series: the zeros, signed zeros and
-    small values in stretches of the one line, no NaN)."""
+    zeros, signed zeros at every third node, a NaN at node 300 (at the
+    middle node of a shorter line) and values scaled to 1e-30 (a 1-D
+    series: the zeros, signed zeros and small values in stretches of the
+    one line, no NaN; fewer than five lines: as many of those as there
+    are lines)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
@@ -3568,10 +3576,15 @@ def planted_lines(shape, axis, dtype, seed):
         bm[0, 2000:3000:3] = -0.0
         bm[0, 3000:4000] *= 1e-30
     else:
-        bm[1] = 0.0
-        bm[2, ::3] = -0.0
-        bm[3, 300] = float("nan")
-        bm[4] *= 1e-30
+        lines = bm.shape[0]
+        if lines > 1:
+            bm[1] = 0.0
+        if lines > 2:
+            bm[2, ::3] = -0.0
+        if lines > 3:
+            bm[3, min(300, shape[axis] // 2)] = float("nan")
+        if lines > 4:
+            bm[4] *= 1e-30
     return b
 
 
@@ -3583,17 +3596,46 @@ def same_or_both_nan(a, b) -> bool:
         torch.where(nan, 0, a), torch.where(nan, 0, b))
 
 
+def s1_launch(b, lev, axis):
+    """S1's launch for ``b`` along ``axis``, as ``tridiag.mass_solve``
+    chooses it, and the blocks of it that an SM holds at once, as the
+    geometry counts them (shared memory, threads, float64's registers)."""
+    from mgard_tpu_torch.ops import tridiag
+    n, size = b.shape[axis], b.element_size()
+    geo = tridiag.solve_geometry(n, b.numel() // n, size, None,
+                                 tridiag.solve_overlap(lev.offdiag,
+                                                       lev.divisors, size))
+    return geo, tridiag._blocks_an_sm(geo.smem, geo.threads, size)
+
+
+def s1_walks(b, lev, axis):
+    """S1's walks in shared memory and re-solved segments on ``b`` at the
+    default geometry: [walks, re-solves]."""
+    import torch
+    from mgard_tpu_torch.ops import tridiag
+    walks = torch.zeros(2, dtype=torch.int32, device=b.device)
+    tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis, walks=walks)
+    return walks.tolist()
+
+
 def check_solve_layouts():
     """S1 bit for bit against its plain version on each of its layouts,
     float32 and float64: at the default geometry whole lines along the
     first, a middle and the last axis (read as it lies) and segmented
-    lines of a 1-D series and of a middle axis; then launched with a
-    small segment and a 1-node overlap, where most runs and segments miss
-    and are walked, on data with zeros, signed zeros, a NaN and 1e-30
-    values: a 1-D series (one line a block), the last axis of many lines
-    and lines along the first and a middle axis (32 lines a tile), each
-    with its walks in shared memory and its re-solved segments counted
-    (both must be > 0)."""
+    lines of a 1-D series and of a middle axis, and in float64 each of
+    its routes (short lines of 5 to 129 nodes in tiles of 32 to 128
+    threads, 129 and 257 nodes in whole-line tiles, segments of 32
+    lines, one line a block) on data with zeros, signed zeros, a NaN and
+    1e-30 values, NaN-aware, its walks counted (none on a short line);
+    then launched with walks forced, where most runs and segments miss
+    and are walked: a small segment and a 1-node overlap on a 1-D series
+    (one line a block), the last axis of many lines and lines along the
+    first and a middle axis (32 lines a tile), and in float64 a 1-node
+    overlap at its own geometry (whole lines of 129 nodes in runs of 33,
+    a series of 1001 nodes in four segments of 32 runs of 10), each with
+    its walks in shared memory and its
+    re-solved segments counted (both must be > 0 where a line has more
+    than one segment, the first where it has one)."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import tridiag
@@ -3607,19 +3649,48 @@ def check_solve_layouts():
             lev = mt.Hierarchy((shape[axis],)).dims[0][-1]
             b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
             x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis)
-            n = shape[axis]
-            geo = tridiag.solve_geometry(n, b.numel() // n,
-                                         b.element_size())
-            got.append((shape, axis, str(dtype)[6:], geo.lines, geo.nseg,
+            geo, _ = s1_launch(b, lev, axis)
+            got.append((shape, axis, str(dtype)[6:], geo.route, geo.lines,
+                        geo.threads, geo.nseg,
                         bits_equal(x, tridiag.mass_solve_plain(
                             b, lev.offdiag, lev.divisors, axis))))
-    log(f"S1 layouts at the default geometry (shape, axis, dtype, lines a "
-        f"tile, segments a line, bit-identical): {got}")
+    log(f"S1 layouts at the default geometry (shape, axis, dtype, route, "
+        f"lines a tile, threads a block, segments a line, bit-identical): "
+        f"{got}")
+    routes = [((1089, 33), 1), ((33, 1089), 0), ((9, 33, 121), 1),
+              ((5, 5, 5), 2), ((5, 5, 5), 0), ((16641, 129), 1),
+              ((129, 129, 129), 0), ((2, 257, 300), 1), ((40, 4097), 1),
+              ((3, 4097, 5), 1), ((9000,), 0)]
+    f64 = []
+    for i, (shape, axis) in enumerate(routes):
+        n = shape[axis]
+        lev = mt.Hierarchy((n,), coordinates=[np.sort(
+            np.random.default_rng(i).uniform(0, 1, n))]).dims[0][-1]
+        b = planted_lines(shape, axis, torch.float64, seed=100 + i)
+        geo, per_sm = s1_launch(b, lev, axis)
+        walks = s1_walks(b, lev, axis)
+        x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis)
+        ok = same_or_both_nan(x, tridiag.mass_solve_plain(
+            b, lev.offdiag, lev.divisors, axis))
+        f64.append((shape, axis, geo.route, geo.lines, geo.threads,
+                    geo.run, geo.nseg, geo.overlap, per_sm, walks, ok))
+        if geo.route == "short" and walks != [0, 0]:
+            raise AssertionError(f"S1 float64 {shape} axis {axis}: the "
+                                 f"short route walked: {walks}")
+    log(f"S1 float64 routes at the default geometry, planted data (shape, "
+        f"axis, route, lines a tile, threads a block, run, segments a "
+        f"line, overlap, blocks an SM, [walks, re-solves], bit-identical "
+        f"or both NaN): {f64}")
+    if {c[2] for c in f64} != {"short", "lines", "runs"}:
+        raise AssertionError("S1 float64: a route was not taken")
     forced = [((8193,), 0, 512), ((64, 1001), 1, 48), ((1001, 40), 0, 48),
               ((2, 1001, 40), 1, 64)]
+    forced64 = [((129, 40), 0, None), ((3, 129, 40), 1, None),
+                ((1001,), 0, None)]
     walked = []
     for dtype in (torch.float32, torch.float64):
-        for shape, axis, segment in forced:
+        for shape, axis, segment in forced + (
+                forced64 if dtype == torch.float64 else []):
             lev = mt.Hierarchy((shape[axis],), coordinates=[np.sort(
                 np.random.default_rng(0).uniform(0, 1, shape[axis]))]
                                ).dims[0][-1]
@@ -3627,15 +3698,19 @@ def check_solve_layouts():
             walks = torch.zeros(2, dtype=torch.int32, device="cuda")
             x = tridiag.mass_solve(b, lev.offdiag, lev.divisors, axis,
                                    segment=segment, overlap=1, walks=walks)
-            w = walks.tolist()
-            walked.append((shape, axis, str(dtype)[6:], segment, w,
+            n = shape[axis]
+            geo = tridiag.solve_geometry(n, b.numel() // n,
+                                         b.element_size(), segment, 1)
+            walked.append((shape, axis, str(dtype)[6:], segment, geo.route,
+                           geo.nseg, walks.tolist(),
                            same_or_both_nan(x, tridiag.mass_solve_plain(
                                b, lev.offdiag, lev.divisors, axis))))
     log(f"S1 with walks forced, overlap 1 (shape, axis, dtype, segment, "
-        f"[runs walked in shared memory, segments re-solved], "
-        f"bit-identical): {walked}")
-    if not all(c[-1] for c in got + walked) \
-            or not all(min(c[4]) > 0 for c in walked):
+        f"route, segments a line, [runs walked in shared memory, segments "
+        f"re-solved], bit-identical): {walked}")
+    if not all(c[-1] for c in got + f64 + walked) \
+            or not all(c[6][0] > 0 and (c[6][1] > 0 or c[5] == 1)
+                       for c in walked):
         raise AssertionError("S1 differs from its plain version, or a "
                              "forced case walked nothing")
 
@@ -3776,28 +3851,72 @@ def long_field():
             B = transform.restrict(B, hier.dims[d][l], d)
         for d in transform._level_dims(hier, l):
             B = B.contiguous()
-            entry = s1_record(B, hier.dims[d][l - 1], d, name)
+            lev = hier.dims[d][l - 1]
+            entry = s1_record(B, lev, d, name)
+            geo, per_sm = s1_launch(B, lev, d)
             log(f"long field level {l} axis {d}: S1 on {tuple(B.shape)} "
                 f"{B.dtype} {entry['ms']:.4f} ms, "
                 f"{entry['bound_ms'] / entry['ms']:.1%} of its byte bound, "
-                f"tensordot {entry['library_ms']:.4f} ms")
+                f"tensordot {entry['library_ms']:.4f} ms; route "
+                f"{geo.route}, {geo.lines} lines x {geo.threads} threads a "
+                f"block, run {geo.run}, {geo.nseg} segment(s), overlap "
+                f"{geo.overlap}, {per_sm} blocks an SM, [walks, re-solves] "
+                f"{s1_walks(B, lev, d)}")
             entries.setdefault(name, entry)
-            lev = hier.dims[d][l - 1]
             B = tridiag.mass_solve(B, lev.offdiag, lev.divisors, d)
         del B
     del top
     torch.cuda.empty_cache()
-    # the field as float64 at s = inf and s = 0: the encode peaks
+    # the field as float64 at s = inf and s = 0: the encode peaks; at
+    # s = inf the device encode and decode, the path float64 S1 sits in
     v64 = v.double()
     del v
     for s in (math.inf, 0.0):
         comp = mt.get_compressor(LONG_FIELD, np.float64, s=s, device="cuda")
         PLANNER_PEAKS[f"float64 {LONG_FIELD} s = {s}"] = encode_peak(
             f"long field float64 s = {s}", comp, v64, TOL)
+        if s == math.inf:
+            float64_device_times(comp, v64)
         del comp
     del v64
     torch.cuda.empty_cache()
     return counts, entries["S1 " + SOLVE_NAME], entries["mass_solve_f64"]
+
+
+def float64_device_times(comp, v64):
+    """The float64 field's device encode and decode (CUDA events, one
+    warm-up, three runs each), S1's calls in one more of each (their
+    ms, by nodes), and the decode within the tolerance."""
+    import torch
+    enc = comp.encode_device(v64, TOL)
+    exps, words = enc[0], enc[1]
+    enc_ms = cuda_ms(lambda: comp.encode_device(v64, TOL), 3, warm=False)
+    out = comp.decode_device(exps, words, TOL)
+    err = 0.0
+    for a in range(0, v64.shape[0], 8):
+        d = float((out[a:a + 8] - v64[a:a + 8]).abs().max())
+        err = d if d != d else max(err, d)
+        if err != err:
+            break
+    del out
+    dec_ms = cuda_ms(lambda: comp.decode_device(exps, words, TOL), 3,
+                     warm=False)
+    with SolveProbe(comp.hier) as enc_probe:
+        comp.encode_device(v64, TOL)
+    with SolveProbe(comp.hier) as dec_probe:
+        comp.decode_device(exps, words, TOL)
+    del enc, exps, words
+    torch.cuda.empty_cache()
+    solves = [sum(t for *_, t in p.times()) for p in (enc_probe, dec_probe)]
+    log(f"long field float64 s = inf: device encode {enc_ms:.3f} ms, "
+        f"decode {dec_ms:.3f} ms, encode + decode {enc_ms + dec_ms:.3f} ms "
+        f"(CUDA events, 3 runs each); S1 {solves[0]:.3f} / {solves[1]:.3f} "
+        f"ms of them; S1 calls in the encode (nodes, axis, shape, ms): "
+        f"{enc_probe.times()}; max|v - out| = {err!r}")
+    if not err <= TOL:
+        raise AssertionError(f"long field float64: error {err} exceeds "
+                             f"{TOL}")
+    return enc_ms, dec_ms
 
 
 def s1_norm_levels(shape=(256, 256, 256)):
@@ -3841,14 +3960,18 @@ def s1_norm_levels(shape=(256, 256, 256)):
         bound = bound_ms(s1_bytes(b, axis), 0)[0]
         for i, t in enumerate((ms, bound, lib_ms)):
             total[i] += t
+        geo, per_sm = s1_launch(b, lev, axis)
         rows.append((tuple(b.shape), axis, round(ms, 4), round(bound, 4),
-                     f"{bound / ms:.1%}", round(lib_ms, 4)))
+                     f"{bound / ms:.1%}", round(lib_ms, 4), geo.route,
+                     geo.threads, geo.blocks, per_sm,
+                     s1_walks(b, lev, axis)))
     del inputs
     torch.cuda.empty_cache()
     log(f"float64 S1 in the {shape} s-norm components, {len(rows)} solves "
-        f"(shape, "
-        f"axis, median ms, bound ms with its tables, share, tensordot "
-        f"median ms): {rows}; in all S1 {total[0]:.4f} ms, bound "
+        f"(shape, axis, median ms, bound ms with its tables, share, "
+        f"tensordot median ms, route, threads a block, blocks, blocks an "
+        f"SM, [walks, re-solves]): {rows}; in all S1 {total[0]:.4f} ms, "
+        f"bound "
         f"{total[1]:.4f} ms ({total[1] / total[0]:.1%}), tensordot "
         f"{total[2]:.4f} ms")
     if len(rows) != len(probe.checked) or not rows:

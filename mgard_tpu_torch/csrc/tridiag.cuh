@@ -1,7 +1,7 @@
 // S1's kernels and their launch, shared by the two sources that
 // instantiate them: tridiag.cu (float, and the launcher mgard_mass_solve)
 // and tridiag_f64.cu (double), compiled side by side.  See tridiag.cu
-// for what S1 computes, its design and its exactness.
+// for what S1 computes, its routes and its exactness.
 
 #pragma once
 
@@ -12,9 +12,11 @@
 
 namespace mgard_s1 {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // the most threads a block
 constexpr int kWarp = 32;
 constexpr int kFixThreads = 128;
+constexpr int kCheckSegs = 64;    // float64: fix_bounds checks its line
+                                  // itself up to this many segments
 constexpr int kSmemMax = 232448;   // the most shared memory a block has
 
 template <typename T> struct Ops;
@@ -49,6 +51,34 @@ template <> struct Ops<double> {
   static __device__ __forceinline__ Bits bits(double a) {
     return static_cast<Bits>(__double_as_longlong(a));
   }
+  // The reciprocal the backward sweep divides through: 1 / b correctly
+  // rounded where 2^-100 <= b <= 2^100, else NaN (every quotient by b
+  // then takes the division).
+  static __device__ __forceinline__ double rcp(double b) {
+    return b >= 0x1p-100 && b <= 0x1p100
+               ? __drcp_rn(b)
+               : __longlong_as_double(0x7ff8000000000000LL);
+  }
+  // a / b from y = rcp(b): Q from a product and two fused steps; ok is
+  // set only where the test of tridiag.cu proves Q the correctly rounded
+  // a / b (2^-900 <= |a| <= 2^900).  Only Q's three operations feed the
+  // next step: the test, on |a| and |Q|, runs beside the chain.
+  static __device__ __forceinline__ double quot(double a, double b,
+                                                double y, bool& ok) {
+    const double q0 = __dmul_rn(a, y);
+    const double Q = __fma_rn(__fma_rn(-b, q0, a), y, q0);
+    const double A = fabs(a), M = fabs(Q);
+    const double r = __fma_rn(-b, M, A);
+    const long long qb = __double_as_longlong(M);
+    const double up = __dsub_rn(__longlong_as_double(qb + 1), M);
+    const double dn = __dsub_rn(M, __longlong_as_double(qb - 1));
+    const double hb = __dmul_rn(0.5, b);
+    const double tu = __dmul_rn(hb, up), td = __dmul_rn(hb, dn);
+    ok = (A >= 0x1p-900) & (A <= 0x1p900) & (tu >= 0x1p-1022) &
+         (tu <= 0x1p1022) & (td >= 0x1p-1022) & (td <= 0x1p1022) &
+         (r < tu) & (r > -td);
+    return Q;
+  }
 };
 
 template <typename T>
@@ -74,19 +104,26 @@ __device__ __forceinline__ T bwd_step(T d, T off, T div, T x) {
   return Ops<T>::div(Ops<T>::sub(d, Ops<T>::mul(off, x)), div);
 }
 
+// The routes of a launch.
+enum Route { kRuns = 0, kLines = 1, kShort = 2 };
+
 // The geometry of a launch; the wrapper's solve_geometry chooses it and
 // the launcher checks it.
 struct Geo {
   int64_t n, m, inner;
   int64_t segment;   // nodes of a line that a block owns
   int64_t nseg;      // segments a line
+  int route;         // kRuns, kLines or kShort
+  int threads;       // threads a block
   int lines;         // lines a tile (1: the runs kernel)
-  int runs;          // runs a line: kThreads / lines
-  int run;           // nodes a run (a power of two in the runs kernel)
+  int runs;          // runs a line: threads / lines (1 in kShort)
+  int run;           // nodes a run (a power of two in float32's runs
+                     // kernel)
   int overlap;       // nodes a run or a tile starts early / ends late
   int width;         // most nodes of a tile: min(n, segment + 2 overlap)
-  int stride;        // lines kernel: a line's elements (odd)
-  int shift;         // runs kernel: log2(run)
+  int stride;        // lines and short kernels: a line's elements (odd)
+  int shift;         // runs kernel, float32: log2(run)
+  unsigned magic;    // runs kernel, float64: ceil(2^32 / run)
   int pad;           // runs kernel: overlap rounded up to a multiple of run
 };
 
@@ -107,7 +144,10 @@ struct Bounds {
 // by its lines.  A walk reads b from device memory.
 template <typename T>
 struct LinesTile {
-  T *b, *d, *off, *dv, *w;
+  // float64 keeps 1 / div beside div: its backward sweep divides
+  // through it (Ops<double>::quot)
+  static constexpr bool kRcp = sizeof(T) == 8;
+  T *b, *d, *off, *dv, *w, *rcp;
   int stride;
   int64_t t0;
   const T* src;
@@ -124,26 +164,55 @@ struct LinesTile {
   }
   __device__ __forceinline__ T offi(int64_t i) const { return off[i - t0]; }
   __device__ __forceinline__ T divi(int64_t i) const { return dv[i - t0]; }
+  __device__ __forceinline__ T rcpi(int64_t i) const { return rcp[i - t0]; }
   __device__ __forceinline__ T bwalk(int l, int64_t i) const {
     return src[line_base(j0 + l, n, inner) + i * inner];
+  }
+  // x_i of line l, from a backward sweep
+  __device__ __forceinline__ void put(int l, int64_t i, T x) const {
+    b[at(l, i)] = x;
+  }
+};
+
+// The short route's tile where inner > 1: the lines kernel's, but a
+// thread's backward sweep writes its line's x straight to device memory
+// (`xl`: its line's node 0 there, node i inner further on; the lanes of
+// a warp on neighbouring lines, so coalesced), where it waits on
+// nothing, and no store phase follows.
+template <typename T>
+struct ShortTile : LinesTile<T> {
+  T* xl;
+  __device__ __forceinline__ void put(int, int64_t i, T x) const {
+    xl[i * this->inner] = x;
   }
 };
 
 // Shared memory of the runs kernel (one line): b (then x), d, off and
 // div, node i at r + r / run, r = i - (s - pad): run p's nodes are one
-// padded row of run + 1 elements, so 32 runs at one step hit 32 banks.
+// padded row of run + 1 elements, so 32 runs at one step hit 32 banks
+// (float32: run a power of two, r / run a shift; float64: any run, r /
+// run as the high word of r * magic, magic = ceil(2^32 / run), exact for
+// r < 2^16; the wrapper takes an even run, whose odd rows of doubles
+// keep the 16 lanes of each half of a warp on 16 bank pairs).
 // Until the forward sweep writes d_i there, node i's slot of d holds
 // w_{i-1}, divided once when the tile is loaded.
 template <typename T>
 struct RunsTile {
+  static constexpr bool kRcp = false;
   T *b, *d, *off, *dv;
   int shift;
+  unsigned magic;
   int64_t base;
   const T* src;   // the line in device memory, node i at i * inner
   int64_t inner;
   __device__ __forceinline__ int at(int, int64_t i) const {
     const int r = static_cast<int>(i - base);
-    return r + (r >> shift);
+    if constexpr (sizeof(T) == 4) {
+      return r + (r >> shift);
+    } else {
+      return r + static_cast<int>(__umulhi(static_cast<unsigned>(r),
+                                           magic));
+    }
   }
   __device__ __forceinline__ T wprev(int l, int64_t i) const {
     return d[at(l, i)];
@@ -156,6 +225,9 @@ struct RunsTile {
   __device__ __forceinline__ T divi(int64_t i) const { return dv[at(0, i)]; }
   __device__ __forceinline__ T bwalk(int, int64_t i) const {
     return src[i * inner];
+  }
+  __device__ __forceinline__ void put(int l, int64_t i, T x) const {
+    b[at(l, i)] = x;
   }
 };
 
@@ -195,7 +267,10 @@ __device__ __forceinline__ T fwd_range(const Tile& tl, int l, int64_t i,
 }
 
 // Backward steps to nodes i, i - 1, ..., lo of line l from x_{i+1};
-// kStore: x_i written.
+// kStore: x_i written.  Where the tile keeps reciprocals, each
+// kStep steps divide through them (Ops<double>::quot); if any quotient
+// is not proven correctly rounded, the kStep steps are taken again from
+// their first x with the division, their operands still in registers.
 template <bool kStore, typename T, typename Tile>
 __device__ __forceinline__ T bwd_range(const Tile& tl, int l, int64_t i,
                                        int64_t lo, T xv) {
@@ -207,15 +282,32 @@ __device__ __forceinline__ T bwd_range(const Tile& tl, int l, int64_t i,
       ov[u] = tl.offi(i - u);
       qv[u] = tl.divi(i - u);
     }
+    if constexpr (Tile::kRcp) {
+      T yv[kStep];
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) yv[u] = tl.rcpi(i - u);
+      const T x0 = xv;
+      bool ok = true;
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        bool k;
+        xv = Ops<T>::quot(Ops<T>::sub(dv[u], Ops<T>::mul(ov[u], xv)), qv[u],
+                          yv[u], k);
+        ok &= k;
+        if (kStore) tl.put(l, i - u, xv);
+      }
+      if (ok) continue;
+      xv = x0;
+    }
 #pragma unroll
     for (int u = 0; u < kStep; ++u) {
       xv = bwd_step(dv[u], ov[u], qv[u], xv);
-      if (kStore) tl.b[tl.at(l, i - u)] = xv;
+      if (kStore) tl.put(l, i - u, xv);
     }
   }
   for (; i >= lo; --i) {
     xv = bwd_step(tl.d[tl.at(l, i)], tl.offi(i), tl.divi(i), xv);
-    if (kStore) tl.b[tl.at(l, i)] = xv;
+    if (kStore) tl.put(l, i, xv);
   }
   return xv;
 }
@@ -363,13 +455,83 @@ __device__ __forceinline__ void write_bounds(const Geo& g, Bounds<T> bd,
   if (seg == 0) bd.line[j] = 0;
 }
 
+// Threads a block: float32 always launches kThreads, a constant its
+// loops fold in; float64's follow the tile.
+template <typename T>
+__device__ __forceinline__ int block_threads(const Geo& g) {
+  return sizeof(T) == 4 ? kThreads : g.threads;
+}
+
+// A tile's lines from device memory into tl.b (nodes [t0, t0 + W) of
+// lines j0 .. j0 + nl - 1), coalesced along whichever axis is
+// contiguous: where inner = 1 a warp reads a stretch of one line, else
+// the lanes of a warp read neighbouring lines at one node.  float32
+// takes the start of the thread's line (tid % lines) as lbase, found
+// once by its kernel; float64 finds it here and in store_tile, which
+// keeps it out of the sweeps' registers (its lines kernel ran ~5%
+// slower with it held on an H100).
+template <typename T>
+__device__ __forceinline__ void load_tile(const Geo& g, const LinesTile<T>& tl,
+                                          const T* b, int64_t j0, int nl,
+                                          int64_t lbase, int64_t t0, int W,
+                                          int tid) {
+  const int LT = g.lines;
+  if (g.inner == 1) {
+    const int warp = tid / kWarp, lane = tid % kWarp;
+    for (int ll = warp; ll < nl; ll += block_threads<T>(g) / kWarp) {
+      const T* src = b + (j0 + ll) * g.n + t0;
+      for (int u = lane; u < W; u += kWarp) {
+        copy_async(&tl.b[ll * g.stride + u], src + u);
+      }
+    }
+  } else {
+    const int l = tid % LT;
+    if (l < nl) {
+      const int64_t lb = sizeof(T) == 4 ? lbase
+                                        : line_base(j0 + l, g.n, g.inner);
+      for (int u = tid / LT; u < W; u += g.runs) {
+        copy_async(&tl.b[l * g.stride + u], b + lb + (t0 + u) * g.inner);
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
+// x at nodes [s, e) of the tile's lines, from tl.b, coalesced as
+// load_tile reads.
+template <typename T>
+__device__ __forceinline__ void store_tile(const Geo& g,
+                                           const LinesTile<T>& tl, T* x,
+                                           int64_t j0, int nl, int64_t lbase,
+                                           int64_t s, int64_t e, int tid) {
+  const int LT = g.lines;
+  if (g.inner == 1) {
+    const int warp = tid / kWarp, lane = tid % kWarp;
+    for (int ll = warp; ll < nl; ll += block_threads<T>(g) / kWarp) {
+      T* dst = x + (j0 + ll) * g.n;
+      for (int64_t i = s + lane; i < e; i += kWarp) {
+        dst[i] = tl.b[tl.at(ll, i)];
+      }
+    }
+  } else {
+    const int l = tid % LT;
+    if (l < nl) {
+      const int64_t lb = sizeof(T) == 4 ? lbase
+                                        : line_base(j0 + l, g.n, g.inner);
+      for (int64_t i = s + tid / LT; i < e; i += g.runs) {
+        x[lb + i * g.inner] = tl.b[tl.at(l, i)];
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 solve_lines(const T* __restrict__ b, const T* __restrict__ off,
             const T* __restrict__ dv, T* __restrict__ x, Bounds<T> bd,
             Geo g, int* walks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int LT = g.lines, P = g.runs;
+  const int LT = g.lines;
   const int64_t grp = blockIdx.x / g.nseg;
   const int64_t seg = blockIdx.x - grp * g.nseg;
   const int64_t j0 = grp * LT;
@@ -386,45 +548,33 @@ solve_lines(const T* __restrict__ b, const T* __restrict__ off,
   tl.off = base + LT * g.stride;
   tl.dv = tl.off + g.width;
   tl.w = tl.dv + g.width;
+  tl.rcp = tl.w + g.width;
   tl.stride = g.stride;
   tl.t0 = t0;
   tl.src = b;
   tl.j0 = j0;
   tl.n = g.n;
   tl.inner = g.inner;
-  T* pf_s = tl.w + g.width;
-  T* pb_s = pf_s + kThreads;
-  T* dl_s = pb_s + kThreads;
-  int* miss_s = reinterpret_cast<int*>(dl_s + kThreads);
+  T* pf_s = tl.w + (LinesTile<T>::kRcp ? 2 : 1) * g.width;
+  T* pb_s = pf_s + block_threads<T>(g);
+  T* dl_s = pb_s + block_threads<T>(g);
+  int* miss_s = reinterpret_cast<int*>(dl_s + block_threads<T>(g));
 
   const int tid = threadIdx.x;
   const int l = tid % LT, p = tid / LT;
   const bool live = l < nl;
-  const int64_t lbase = line_base(j0 + l, g.n, g.inner);
+  const int64_t lbase = sizeof(T) == 4 ? line_base(j0 + l, g.n, g.inner)
+                                       : 0;
 
-  if (g.inner == 1) {
-    // a warp reads a run of one line
-    const int warp = tid / kWarp, lane = tid % kWarp;
-    for (int ll = warp; ll < nl; ll += kThreads / kWarp) {
-      const T* src = b + (j0 + ll) * g.n + t0;
-      for (int u = lane; u < W; u += kWarp) {
-        copy_async(&tl.b[ll * g.stride + u], src + u);
-      }
-    }
-  } else if (live) {
-    // the lanes of a warp read 32 lines at one node
-    for (int u = p; u < W; u += P) {
-      copy_async(&tl.b[l * g.stride + u], b + lbase + (t0 + u) * g.inner);
-    }
-  }
-  __pipeline_commit();
-  for (int u = tid; u < W; u += kThreads) {
+  load_tile(g, tl, b, j0, nl, lbase, t0, W, tid);
+  for (int u = tid; u < W; u += block_threads<T>(g)) {
     const int64_t i = t0 + u;
     const T o = i < g.n - 1 ? off[i] : T(0);
     const T q = dv[i];
     tl.off[u] = o;
     tl.dv[u] = q;
     tl.w[u] = Ops<T>::div(o, q);
+    if constexpr (LinesTile<T>::kRcp) tl.rcp[u] = Ops<T>::rcp(q);
   }
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -432,23 +582,96 @@ solve_lines(const T* __restrict__ b, const T* __restrict__ off,
   const T dl = solve_tile(g, tl, pf_s, pb_s, dl_s, miss_s, l, p, live, s,
                           e, t0, t1, walks);
 
-  if (g.inner == 1) {
-    const int warp = tid / kWarp, lane = tid % kWarp;
-    for (int ll = warp; ll < nl; ll += kThreads / kWarp) {
-      T* dst = x + (j0 + ll) * g.n;
-      for (int64_t i = s + lane; i < e; i += kWarp) {
-        dst[i] = tl.b[tl.at(ll, i)];
-      }
-    }
-  } else if (live) {
-    for (int64_t i = s + p; i < e; i += P) {
-      x[lbase + i * g.inner] = tl.b[tl.at(l, i)];
-    }
-  }
+  store_tile(g, tl, x, j0, nl, lbase, s, e, tid);
   if (g.nseg > 1 && p == 0 && live) {
     const int p_last = static_cast<int>((e - s - 1) / g.run);
     write_bounds(g, bd, seg, j0 + l, pf_s[l], dl, pb_s[p_last * LT + l],
                  tl.b[tl.at(l, s)]);
+  }
+}
+
+// The short route: one thread a whole line, `lines` (= threads) lines a
+// block, the tile's lines in shared memory as the lines kernel lays them
+// out (odd stride, read coalesced).  Each thread sweeps its line forward
+// and backward in place from its first and its last node: no guess,
+// nothing to check, the plain version's operations in its order.
+// kThrough (inner > 1): the backward sweep writes x to device memory
+// (ShortTile); else x stays in the tile and the block writes it out as
+// one run of nl * n values.
+template <typename T, bool kThrough>
+__global__ void __launch_bounds__(kThreads)
+solve_short(const T* __restrict__ b, const T* __restrict__ off,
+            const T* __restrict__ dv, T* __restrict__ x, Geo g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LT = g.lines;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * LT;
+  const int nl = static_cast<int>(g.m - j0 < LT ? g.m - j0 : LT);
+  const int64_t n = g.n;
+
+  ShortTile<T> tl;
+  T* base = reinterpret_cast<T*>(smem);
+  tl.b = tl.d = base;
+  tl.off = base + LT * g.stride;
+  tl.dv = tl.off + n;
+  tl.w = tl.dv + n;
+  tl.rcp = tl.w + n;
+  tl.stride = g.stride;
+  tl.t0 = 0;
+  tl.src = b;
+  tl.j0 = j0;
+  tl.n = n;
+  tl.inner = g.inner;
+
+  const int tid = threadIdx.x;
+  const int64_t lbase = line_base(j0 + (tid < nl ? tid : 0), n, g.inner);
+  tl.xl = x + lbase;
+  // where inner = 1 the tile's lines lie end to end in device memory:
+  // its threads copy them as one run of nl * n values, element e of it
+  // node e % n of line e / n
+  const int len = nl * static_cast<int>(n);
+  const int64_t at0 = j0 * n;
+  if (kThrough) {
+    load_tile<T>(g, tl, b, j0, nl, lbase, 0, static_cast<int>(n), tid);
+  } else {
+    for (int e = tid; e < len; e += g.threads) {
+      const int ll = e / static_cast<int>(n);
+      copy_async(&tl.b[ll * g.stride + e - ll * static_cast<int>(n)],
+                 b + at0 + e);
+    }
+    __pipeline_commit();
+  }
+  for (int u = tid; u < n; u += g.threads) {
+    const T o = u < n - 1 ? off[u] : T(0);
+    const T q = dv[u];
+    tl.off[u] = o;
+    tl.dv[u] = q;
+    tl.w[u] = Ops<T>::div(o, q);
+    if constexpr (LinesTile<T>::kRcp) tl.rcp[u] = Ops<T>::rcp(q);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  if (tid < nl) {
+    // d_0 = b_0 is in place already
+    fwd_range<true>(tl, tid, 1, n, tl.b[tl.at(tid, 0)]);
+  }
+  if (tid < nl) {
+    const T xv = Ops<T>::div(tl.d[tl.at(tid, n - 1)], tl.divi(n - 1));
+    if (kThrough) {
+      tl.put(tid, n - 1, xv);
+      bwd_range<true>(tl, tid, n - 2, 0, xv);
+    } else {
+      tl.b[tl.at(tid, n - 1)] = xv;
+      bwd_range<true>(static_cast<const LinesTile<T>&>(tl), tid, n - 2, 0,
+                      xv);
+    }
+  }
+  if (!kThrough) {
+    __syncthreads();
+    for (int e = tid; e < len; e += g.threads) {
+      const int ll = e / static_cast<int>(n);
+      x[at0 + e] = tl.b[ll * g.stride + e - ll * static_cast<int>(n)];
+    }
   }
 }
 
@@ -464,7 +687,9 @@ solve_runs(const T* __restrict__ b, const T* __restrict__ off,
   const int64_t e = s + g.segment < g.n ? s + g.segment : g.n;
   const int64_t t0 = s - g.overlap > 0 ? s - g.overlap : 0;
   const int64_t t1 = e + g.overlap < g.n ? e + g.overlap : g.n;
-  const int q = static_cast<int>((g.segment + 2 * g.pad) >> g.shift) *
+  const int q = static_cast<int>(sizeof(T) == 4
+                                     ? (g.segment + 2 * g.pad) >> g.shift
+                                     : (g.segment + 2 * g.pad) / g.run) *
                 (g.run + 1);
 
   RunsTile<T> tl;
@@ -474,17 +699,18 @@ solve_runs(const T* __restrict__ b, const T* __restrict__ off,
   tl.off = base + 2 * q;
   tl.dv = base + 3 * q;
   tl.shift = g.shift;
+  tl.magic = g.magic;
   tl.base = s - g.pad;
   T* pf_s = base + 4 * q;
-  T* pb_s = pf_s + kThreads;
-  T* dl_s = pb_s + kThreads;
-  int* miss_s = reinterpret_cast<int*>(dl_s + kThreads);
+  T* pb_s = pf_s + block_threads<T>(g);
+  T* dl_s = pb_s + block_threads<T>(g);
+  int* miss_s = reinterpret_cast<int*>(dl_s + block_threads<T>(g));
 
   const int tid = threadIdx.x;
   const int64_t lbase = line_base(j, g.n, g.inner);
   tl.src = b + lbase;
   tl.inner = g.inner;
-  for (int64_t i = t0 + tid; i < t1; i += kThreads) {
+  for (int64_t i = t0 + tid; i < t1; i += block_threads<T>(g)) {
     const int a = tl.at(0, i);
     copy_async(&tl.b[a], b + lbase + i * g.inner);
     copy_async(&tl.dv[a], dv + i);
@@ -498,7 +724,7 @@ solve_runs(const T* __restrict__ b, const T* __restrict__ off,
   __pipeline_wait_prior(0);
   __syncthreads();
   // w_{i-1} into node i's slot of d, divided once
-  for (int64_t i = t0 + 1 + tid; i < t1; i += kThreads) {
+  for (int64_t i = t0 + 1 + tid; i < t1; i += block_threads<T>(g)) {
     const int a = tl.at(0, i - 1);
     tl.d[tl.at(0, i)] = Ops<T>::div(tl.off[a], tl.dv[a]);
   }
@@ -507,7 +733,7 @@ solve_runs(const T* __restrict__ b, const T* __restrict__ off,
   const T dl = solve_tile(g, tl, pf_s, pb_s, dl_s, miss_s, 0, tid, true, s,
                           e, t0, t1, walks);
 
-  for (int64_t i = s + tid; i < e; i += kThreads) {
+  for (int64_t i = s + tid; i < e; i += block_threads<T>(g)) {
     x[lbase + i * g.inner] = tl.b[tl.at(0, i)];
   }
   if (g.nseg > 1 && tid == 0) {
@@ -538,15 +764,33 @@ __global__ void check_bounds(Bounds<T> bd, int64_t nseg, int64_t m) {
 // segments whose boundary missed are re-solved from the exact values
 // beside them, forward in order, then backward in reverse order, each
 // next boundary checked against the new value.  d of a re-solved segment
-// goes through x, which its backward sweep then overwrites.
-template <typename T>
+// goes through x, which its backward sweep then overwrites.  kCheck
+// (float64, at most kCheckSegs segments a line): the thread checks its
+// line's boundaries itself, as check_bounds does, which then is not
+// launched.
+template <typename T, bool kCheck>
 __global__ void fix_bounds(const T* __restrict__ b, const T* __restrict__ off,
                            const T* __restrict__ dv, T* __restrict__ x,
                            Bounds<T> bd, Geo g, int* walks) {
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (j >= g.m || !bd.line[j]) return;
+  if (j >= g.m) return;
   const int64_t m = g.m, n = g.n, inner = g.inner;
+  if (kCheck) {
+    const auto flag = [&](int64_t seg) {
+      const int64_t t = seg * m + j;
+      return (seg > 0 && !same(bd.pf[t], bd.dl[t - m]) ? 1 : 0) |
+             (seg < g.nseg - 1 && !same(bd.pb[t], bd.xf[t + m]) ? 2 : 0);
+    };
+    bool any = false;
+    for (int64_t seg = 0; seg < g.nseg && !any; ++seg) any = flag(seg);
+    if (!any) return;
+    for (int64_t seg = 0; seg < g.nseg; ++seg) {
+      bd.flags[seg * m + j] = flag(seg);
+    }
+  } else if (!bd.line[j]) {
+    return;
+  }
   const int64_t q = line_base(j, n, inner);
   bool redone = false;
   for (int64_t seg = 1; seg < g.nseg; ++seg) {
@@ -597,19 +841,27 @@ __global__ void fix_bounds(const T* __restrict__ b, const T* __restrict__ off,
 
 // Shared memory of a launch, in bytes (ops/tridiag.py:solve_smem).
 inline size_t smem_bytes(const Geo& g, size_t size) {
-  const size_t probes = 3 * kThreads * size + kThreads * sizeof(int);
-  if (g.lines == 1) {
+  // off, div, w and, in float64, 1 / div of each node of a tile
+  const size_t tables = size == 8 ? 4 : 3;
+  if (g.route == kShort) {
+    return (static_cast<size_t>(g.lines) * g.stride +
+            tables * static_cast<size_t>(g.n)) * size;
+  }
+  const size_t probes = (3 * size + sizeof(int)) *
+                        static_cast<size_t>(g.threads);
+  if (g.route == kRuns) {
     const size_t q = static_cast<size_t>((g.segment + 2 * g.pad) / g.run) *
                      (g.run + 1);
     return 4 * q * size + probes;
   }
   return (static_cast<size_t>(g.lines) * g.stride +
-          3 * static_cast<size_t>(g.width)) * size + probes;
+          tables * static_cast<size_t>(g.width)) * size + probes;
 }
 
 template <typename T>
 cudaError_t solve(const T* b, const T* off, const T* dv, T* x, T* bounds,
-                  int* flags, int* walks, const Geo& g, cudaStream_t stream) {
+                  int* flags, int* walks, const Geo& g,
+                  cudaStream_t stream) {
   const size_t smem = smem_bytes(g, sizeof(T));
   const int64_t groups = (g.m + g.lines - 1) / g.lines;
   if (smem > static_cast<size_t>(kSmemMax) || groups > INT_MAX / g.nseg ||
@@ -621,28 +873,42 @@ cudaError_t solve(const T* b, const T* off, const T* dv, T* x, T* bounds,
   Bounds<T> bd{bounds, bounds + nb, bounds + 2 * nb, bounds + 3 * nb, flags,
                flags + nb};
   cudaError_t err;
-  if (g.lines == 1) {
+  if (g.route == kShort) {
+    const auto kernel = g.inner > 1 ? solve_short<T, true>
+                                    : solve_short<T, false>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, g.threads, smem, stream>>>(b, off, dv, x, g);
+  } else if (g.route == kRuns) {
     err = cudaFuncSetAttribute(solve_runs<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    solve_runs<T><<<blocks, kThreads, smem, stream>>>(b, off, dv, x, bd, g,
-                                                      walks);
+    solve_runs<T><<<blocks, g.threads, smem, stream>>>(b, off, dv, x, bd, g,
+                                                       walks);
   } else {
     err = cudaFuncSetAttribute(solve_lines<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    solve_lines<T><<<blocks, kThreads, smem, stream>>>(b, off, dv, x, bd, g,
-                                                       walks);
+    solve_lines<T><<<blocks, g.threads, smem, stream>>>(b, off, dv, x, bd,
+                                                        g, walks);
   }
   if ((err = cudaGetLastError()) != cudaSuccess || g.nseg == 1) return err;
+  const unsigned fix_blocks = static_cast<unsigned>(
+      (g.m + kFixThreads - 1) / kFixThreads);
+  if (sizeof(T) == 8 && g.nseg <= kCheckSegs) {
+    fix_bounds<T, true><<<fix_blocks, kFixThreads, 0, stream>>>(
+        b, off, dv, x, bd, g, walks);
+    return cudaGetLastError();
+  }
   check_bounds<T><<<static_cast<unsigned>((nb + kThreads - 1) / kThreads),
                     kThreads, 0, stream>>>(bd, g.nseg, g.m);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fix_bounds<T><<<static_cast<unsigned>((g.m + kFixThreads - 1) /
-                                        kFixThreads),
-                  kFixThreads, 0, stream>>>(b, off, dv, x, bd, g, walks);
+  fix_bounds<T, false><<<fix_blocks, kFixThreads, 0, stream>>>(
+      b, off, dv, x, bd, g, walks);
   return cudaGetLastError();
 }
 

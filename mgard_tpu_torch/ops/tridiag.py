@@ -48,21 +48,43 @@ import torch
 from . import _build
 
 __all__ = ["mass_apply", "mass_solve", "mass_solve_plain", "solve_tables",
-           "solve_geometry", "SolveGeometry", "cached_tensor", "table_scope",
-           "pad_fold", "along_axis"]
+           "solve_geometry", "solve_overlap", "SolveGeometry",
+           "cached_tensor", "table_scope", "pad_fold", "along_axis"]
 
-# S1's tiles (csrc/tridiag.cuh): 256 threads a block; shared memory aimed
-# at three blocks an SM, else two, at most what one block may have
-# (H100); a run of _SOLVE_RUN nodes a thread where a block takes one
-# line; runs and tiles start _SOLVE_OVERLAP[itemsize] nodes early (the
-# sweeps contract by about 0.27 a step: float32 meets in ~13 steps,
-# float64 in ~29).
+# S1's tiles (csrc/tridiag.cuh).  float32: 256 threads a block; shared
+# memory aimed at three blocks an SM, else two, at most what one block
+# may have (H100); a run of _SOLVE_RUN nodes a thread where a block takes
+# one line; runs and tiles start _SOLVE_OVERLAP[4] nodes early (the
+# sweeps contract by about 0.27 a step: float32 meets in ~13 steps).
+# float64 starts them the level's overlap early (solve_overlap), the
+# steps that contract a guess's error to 2^-_MEET_BITS (half an ulp with
+# a margin of 2^20, for values that shrink along a line: at 2^-58 the
+# (64, 512, 8192) field's level 6 walked thousands of runs on an H100),
+# _SOLVE_OVERLAP[8] where the level is not known.
 _SOLVE_THREADS = 256
 _SOLVE_SMEM = (74 * 1024, 110 * 1024)
 _SMEM_MAX = 232448
 _SOLVE_RUN = 16
-_SOLVE_OVERLAP = {4: 32, 8: 64}
+_SOLVE_OVERLAP = {4: 32, 8: 40}
 _TILE_LINES = (256, 128, 64, 32)
+_MEET_BITS = 74
+_OVERLAP_MAX = 128
+# float64's routes: an H100 has _SMS SMs of _SM_SMEM bytes of shared
+# memory (a block takes 1 KB more than it asks for), _SM_THREADS threads
+# and _SM_REGS registers, of which float64's kernels take up to
+# _F64_REGS a thread (ptxas: 80 to 108); a line shorter than
+# _SHORT_OVERLAPS overlaps is not split (one thread solves it, in a tile
+# of at most _SHORT_SMEM bytes where the level has the lines for two
+# such blocks an SM); every tile fits two blocks an SM (_TWO_A_SM).
+_SMS = 132
+_SM_SMEM = 233472
+_SM_THREADS = 2048
+_SM_REGS = 65536
+_F64_REGS = 128
+_SHORT_OVERLAPS = 4
+_SHORT_SMEM = 40 * 1024
+_TWO_A_SM = _SM_SMEM // 2 - 1024
+_ROUTES = {"runs": 0, "lines": 1, "short": 2}
 
 # The open table scopes, innermost last: each maps a key to a table made
 # while it was the innermost one.
@@ -274,7 +296,9 @@ class SolveGeometry(NamedTuple):
     kernel), ``run`` nodes a thread's run, ``segment`` nodes of a line a
     block owns, ``nseg`` segments a line, ``overlap`` nodes a run or a
     tile starts early, ``smem`` bytes of shared memory a block,
-    ``blocks`` blocks of the tile kernel."""
+    ``blocks`` blocks of the tile kernel, ``threads`` threads a block,
+    ``route`` the kernel: "runs", "lines" or "short" (one thread a whole
+    line, ``lines`` = ``threads``)."""
     lines: int
     run: int
     segment: int
@@ -282,44 +306,131 @@ class SolveGeometry(NamedTuple):
     overlap: int
     smem: int
     blocks: int
+    threads: int = _SOLVE_THREADS
+    route: str = "lines"
 
 
 def solve_smem(lines: int, run: int, segment: int, n: int, overlap: int,
-               itemsize: int) -> int:
+               itemsize: int, threads: int = _SOLVE_THREADS,
+               route=None) -> int:
     """Shared memory of one S1 block, in bytes (``smem_bytes`` of
-    csrc/tridiag.cuh)."""
-    probes = 3 * _SOLVE_THREADS * itemsize + 4 * _SOLVE_THREADS
-    if lines == 1:
+    csrc/tridiag.cuh); ``route`` defaults to "runs" for one line a
+    block, else "lines"."""
+    route = route or ("runs" if lines == 1 else "lines")
+    # off, div, w and, in float64, 1 / div of each node of a tile
+    tables = 4 if itemsize == 8 else 3
+    if route == "short":
+        return (lines * (n | 1) + tables * n) * itemsize
+    probes = (3 * itemsize + 4) * threads
+    if route == "runs":
         pad = -(-overlap // run) * run
         return 4 * (segment + 2 * pad) // run * (run + 1) * itemsize + probes
     width = min(n, segment + 2 * overlap)
-    return (lines * (width | 1) + 3 * width) * itemsize + probes
+    return (lines * (width | 1) + tables * width) * itemsize + probes
+
+
+_OVERLAPS = {}
+
+
+def _meet_steps(offdiag: np.ndarray, divisors: np.ndarray) -> int:
+    """The fewest steps k such that every k consecutive factors
+    |w_i| = |off_i / div_i| of a level multiply to 2^-_MEET_BITS or
+    less (windows taken in chunks of 2^20 factors, each made on its own,
+    so a long level needs little memory); n where no k below n does
+    (such a line is never split), and _OVERLAP_MAX where none up to it
+    does on a longer line."""
+    n = len(divisors)
+    offdiag, divisors = np.asarray(offdiag), np.asarray(divisors)
+    cap = min(_OVERLAP_MAX, n - 1)
+    k, chunk = 1, 1 << 20
+    for a in range(0, n - 1, chunk):
+        b = min(a + chunk + cap, n - 1)
+        with np.errstate(all="ignore"):
+            seg = np.log2(np.abs(offdiag[a:b].astype(np.float64)
+                                 / divisors[a:b].astype(np.float64)))
+        # a zero factor contracts at once; a NaN one never
+        seg = np.nan_to_num(seg, nan=np.inf, posinf=np.inf, neginf=-4096.0)
+        c = np.concatenate(([0.0], np.cumsum(seg)))
+        while k <= min(cap, len(seg)):
+            if (c[k:] - c[:-k]).max() <= -_MEET_BITS:
+                break
+            k += 1
+        if k > cap:
+            return n if n - 1 <= _OVERLAP_MAX else _OVERLAP_MAX
+    return k
+
+
+def solve_overlap(offdiag: np.ndarray, divisors: np.ndarray,
+                  itemsize: int) -> int:
+    """The nodes a run of S1 starts early: _SOLVE_OVERLAP[4] in float32;
+    in float64 the level's own (:func:`_meet_steps`), found once per
+    divisors array."""
+    if itemsize != 8:
+        return _SOLVE_OVERLAP[itemsize]
+    key = id(divisors)
+    hit = _OVERLAPS.get(key)
+    if hit is None:
+        hit = _OVERLAPS[key] = _meet_steps(offdiag, divisors)
+        weakref.finalize(divisors, _OVERLAPS.pop, key, None)
+    return hit
+
+
+def _blocks_an_sm(smem: int, threads: int, itemsize: int = 8) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    that one SM holds at once (float64's by its registers too)."""
+    regs = _SM_REGS // (_F64_REGS * threads) if itemsize == 8 else 32
+    return min(_SM_SMEM // (smem + 1024), _SM_THREADS // threads, regs, 32)
 
 
 def solve_geometry(n: int, m: int, itemsize: int, segment=None,
                    overlap=None) -> SolveGeometry:
     """S1's tiles for ``m`` lines of ``n`` nodes of ``itemsize``-byte
-    floats.  32 lines or more: the
-    most lines a tile (256, 128, 64 or 32; 256 / lines runs a line) whose
-    whole lines fit the aimed shared memory, else 32 lines cut into the
-    longest segments that fit, where a run is at least as long as the
-    overlap (which then at most doubles its sweeps); each aim in turn,
-    then all of a block's shared memory.  Fewer lines: one line a block,
-    256 runs of ``_SOLVE_RUN`` nodes (fewer on a short line).
-    ``segment`` and ``overlap`` force the cut (``segment``: 256 times a
-    power of two where a block takes one line); the kernel is exact with
-    any."""
+    floats, whose runs start ``overlap`` nodes early (default
+    ``_SOLVE_OVERLAP[itemsize]``; :func:`mass_solve` passes
+    :func:`solve_overlap`'s).
+
+    float32, 256 threads a block.  32 lines or more: the most lines a
+    tile (256, 128, 64 or 32; 256 / lines runs a line) whose whole lines
+    fit the aimed shared memory, else 32 lines cut into the longest
+    segments that fit, where a run is at least as long as the overlap
+    (which then at most doubles its sweeps); each aim in turn, then all
+    of a block's shared memory.  Fewer lines: one line a block, 256 runs
+    of ``_SOLVE_RUN`` nodes (fewer on a short line).
+
+    float64.  A line shorter than ``_SHORT_OVERLAPS`` overlaps: the
+    short route, one thread a whole line, the most lines a tile (256 to
+    32) within ``_SHORT_SMEM`` that still leave the level two blocks an
+    SM (of ``_SMS``), else 32.
+    Else runs at least twice the overlap, in tiles that fit two blocks
+    an SM: 32 lines or more, 2 to 8 runs a line on whole lines, else on
+    segments of 32 lines, the threads a block following the tile (64 to
+    256), the tile that keeps the most threads an SM busy on nodes of
+    their own (each counted by run / (run + overlap)), then the longest
+    segments; fewer lines, one line a block, the threads (32 to 256) and
+    even run (2 up to what the line needs; a run's padded row of run + 1
+    doubles then starts a bank further on) that score best the same way,
+    then the shorter run: a long series takes 128 threads of runs of 16,
+    three blocks an SM, shorter than twice the overlap, since the
+    kernel's four values a node leave no room for more threads of
+    longer runs.
+
+    ``segment`` forces the cut of either type as float32 cuts it
+    (``segment``: 256 times a power of two where a block takes one
+    line); the kernel is exact with any cut and any overlap."""
     ovl = int(overlap or _SOLVE_OVERLAP[itemsize])
 
-    def geometry(lines, run, seg):
+    def geometry(route, lines, threads, run, seg):
         nseg = -(-n // seg)
-        smem = solve_smem(lines, run, seg, n, ovl, itemsize)
+        smem = solve_smem(lines, run, seg, n, ovl, itemsize, threads, route)
         if smem > _SMEM_MAX:
             raise ValueError(f"S1: a tile of {lines} lines by {seg} + 2 x "
                              f"{ovl} nodes does not fit a block")
         return SolveGeometry(lines, run, seg, nseg, ovl, smem,
-                             -(-m // lines) * nseg)
+                             (m if lines == 1 else -(-m // lines)) * nseg,
+                             threads, route)
 
+    if itemsize == 8 and segment is None:
+        return _geometry_f64(n, m, ovl, geometry)
     if m < 32:
         if segment is None:
             run = 2
@@ -330,23 +441,90 @@ def solve_geometry(n: int, m: int, itemsize: int, segment=None,
             if run < 2 or run & (run - 1) or run * _SOLVE_THREADS != segment:
                 raise ValueError(f"S1: a one-line segment is 256 times a "
                                  f"power of two >= 2, got {segment}")
-        return geometry(1, run, run * _SOLVE_THREADS)
+        return geometry("runs", 1, _SOLVE_THREADS, run,
+                        run * _SOLVE_THREADS)
     if segment is not None:
         runs = _SOLVE_THREADS // 32
-        return geometry(32, -(-min(segment, n) // runs), min(segment, n))
+        return geometry("lines", 32, _SOLVE_THREADS,
+                        -(-min(segment, n) // runs), min(segment, n))
     for cap in (*_SOLVE_SMEM, _SMEM_MAX):
         for lines in _TILE_LINES:
             run = -(-n // (_SOLVE_THREADS // lines))
             if solve_smem(lines, run, n, n, ovl, itemsize) <= cap:
-                return geometry(lines, run, n)
+                return geometry("lines", lines, _SOLVE_THREADS, run, n)
         runs = _SOLVE_THREADS // 32
         run = 0
         while solve_smem(32, run + 1, runs * (run + 1), n, ovl,
                          itemsize) <= cap:
             run += 1
         if run >= (ovl if cap < _SMEM_MAX else 1):
-            return geometry(32, run, runs * run)
+            return geometry("lines", 32, _SOLVE_THREADS, run, runs * run)
     raise ValueError(f"S1: no tile of {n}-node lines fits a block")
+
+
+def _geometry_f64(n: int, m: int, ovl: int, geometry) -> SolveGeometry:
+    """float64's routes (:func:`solve_geometry`)."""
+    def smem(route, lines, threads, run, seg):
+        return solve_smem(lines, run, seg, n, ovl, 8, threads, route)
+
+    if n < _SHORT_OVERLAPS * ovl:
+        fits = [t for t in _TILE_LINES
+                if smem("short", t, t, n, n) <= _TWO_A_SM]
+        for t in fits:
+            if smem("short", t, t, n, n) <= _SHORT_SMEM \
+                    and -(-m // t) >= 2 * _SMS:
+                return geometry("short", t, t, n, n)
+        if fits:
+            return geometry("short", fits[-1], fits[-1], n, n)
+    # score a tile by the threads an SM holds, each counted by the share
+    # of its sweeps that are its own nodes and not guessed ones
+    if m < 32:
+        best = None
+        for t in (32, 64, 128, 256):
+            for run in range(2, max(2, -(-n // t)) + 2, 2):
+                size = smem("runs", 1, t, run, t * run)
+                if size > _TWO_A_SM:
+                    break
+                score = (_blocks_an_sm(size, t) * t * run / (run + ovl),
+                         -run)
+                if best is None or score > best[0]:
+                    best = (score, t, run)
+        t, run = best[1:] if best else (32, 2)
+        return geometry("runs", 1, t, run, t * run)
+    # 32 lines or more: whole lines, else segments of 32 lines
+    best = None
+
+    def consider(lines, threads, run, seg):
+        nonlocal best
+        size = smem("lines", lines, threads, run, seg)
+        if size <= _TWO_A_SM:
+            score = (_blocks_an_sm(size, threads) * threads * run
+                     / (run + ovl), seg)
+            if best is None or score > best[0]:
+                best = (score, (lines, threads, run, seg))
+
+    for lines in (128, 64, 32):
+        for runs in range(2, _SOLVE_THREADS // lines + 1):
+            threads = lines * runs
+            if -(-n // runs) >= 2 * ovl:
+                consider(lines, threads, -(-n // runs), n)
+            run = 2 * ovl
+            if lines != 32 or runs * run >= n or smem(
+                    "lines", 32, threads, run, runs * run) > _TWO_A_SM:
+                continue
+            while runs * (run + 1) < n and smem(
+                    "lines", 32, threads, run + 1,
+                    runs * (run + 1)) <= _TWO_A_SM:
+                run += 1
+            consider(32, threads, run, runs * run)
+    if best is not None:
+        return geometry("lines", *best[1])
+    # no run twice the overlap fits: the longest that fit a block
+    run = 0
+    while smem("lines", 32, 128, run + 1, 4 * (run + 1)) <= _SMEM_MAX \
+            and 4 * run < n:
+        run += 1
+    return geometry("lines", 32, 128, max(run, 1), min(4 * max(run, 1), n))
 
 
 def mass_solve_plain(b: torch.Tensor, offdiag: np.ndarray,
@@ -407,7 +585,8 @@ def mass_solve(b: torch.Tensor, offdiag: np.ndarray, divisors: np.ndarray,
     # S1 reads (outer, n, inner) as it lies: no axis is moved
     inner = math.prod(b.shape[axis + 1:])
     itemsize = 8 if b.dtype == torch.float64 else 4
-    geo = solve_geometry(n, m, itemsize, segment, overlap)
+    geo = solve_geometry(n, m, itemsize, segment, overlap or solve_overlap(
+        offdiag, divisors, itemsize))
     bc = b.contiguous()
     x = torch.empty_like(bc)
     bounds = flags = None
@@ -421,7 +600,8 @@ def mass_solve(b: torch.Tensor, offdiag: np.ndarray, divisors: np.ndarray,
                   None if bounds is None else bounds.data_ptr(),
                   None if flags is None else flags.data_ptr(),
                   None if walks is None else walks.data_ptr(), n, m, inner,
-                  geo.lines, geo.run, geo.segment, geo.overlap,
-                  int(b.dtype == torch.float64), device=device)
+                  _ROUTES[geo.route], geo.threads, geo.lines, geo.run,
+                  geo.segment, geo.overlap, int(b.dtype == torch.float64),
+                  device=device)
     mass_solve.launches += 1
     return x
