@@ -24,7 +24,8 @@ the kernels' JSON line, the card's line and a last line ``{"ok": true,
 script exits non-zero; without a CUDA device it exits non-zero before
 doing anything.
 
-Phases (each prints its wall time):
+Phases (each prints its wall time; long dims and multi-block also the
+seconds of each of their steps, as "-- step <name>: <s> s"):
   1. setup     - card name and power limit, versions, the kernel build
                  and, beside it, the host codecs' (one g++ each) and the
                  main field (host numpy; the "data" step waits for it);
@@ -154,12 +155,14 @@ Phases (each prints its wall time):
                  zlib calls within them): the API's host encode took
                  _quantized_flat's stream from the card and gave the
                  container's section, its host decode gave that stream
-                 back bit for bit.  NONE runs through; then BITPLANE_LZ4
-                 (the main path's launches; each LZ4-decompressed section
-                 the unstaged container's byte for byte; LZ4 by the host
-                 clock) and the zstd losslesses (a round trip where
-                 zstandard is installed, else ModuleNotFoundError from
-                 each, printed which); then HUFFMAN_ZLIB starts, and its
+                 back bit for bit.  NONE's host work runs beside
+                 BITPLANE_LZ4 (the main path's launches; each
+                 LZ4-decompressed section
+                 the unstaged container's byte for byte; its decompress
+                 by the host clock) and the zstd losslesses (a round
+                 trip where zstandard is installed, else
+                 ModuleNotFoundError from each, printed which); then
+                 NONE's round trip ends, HUFFMAN_ZLIB starts, and its
                  host work (~25 s) goes on beside phases 14-19;
  14. CPU format - the reference CPU format (CPU_HUFFMAN_ZLIB) at 129^3,
                  s = inf and s = 0: K1/K5/K6 bit for bit against their
@@ -249,18 +252,19 @@ Phases (each prints its wall time):
                  (b) (64, 512, 8192), levels 5-6 per dim: K5/K6 once,
                  K1 where its gate admits, K2 once, device times, and S1
                  at level 6 along each axis bit for bit against its
-                 plain version, in TURNS turns beside a tensordot with
-                 the dense inverse (the kernels line's entry: dim 0),
-                 and so again in float64 (the entry mass_solve_f64: dim
-                 0; each solve's route, blocks an SM and walks logged);
+                 plain version and timed in TURNS turns, dim 0 (the
+                 kernels line's entry) beside a tensordot with the
+                 dense inverse, and so again in float64 (the entry
+                 mass_solve_f64: dim 0; each solve's route, blocks an SM
+                 and walks logged);
                  the (b) field as float64 at s = inf and s = 0: the
                  encode peaks against the planner's factor, and at
                  s = inf its device encode and decode (CUDA events);
                  float64 S1 at each solve of the orthogonal components
                  of a 256^3 float64 field (every finite s-norm's but
-                 s = 0's, and QoI's), held against its plain version and
-                 timed in TURNS turns beside a float64 tensordot, with
-                 its route, blocks an SM and walks; for (a)
+                 s = 0's, and QoI's), held against its plain version,
+                 with its route, blocks an SM and walks, the first solve
+                 of each level timed in TURNS turns; for (a)
                  and (b) the encode's peak device memory and the tables
                  within it against the planner's factor, no table left
                  on the card by a call, the ratio and error those before
@@ -278,7 +282,7 @@ Phases (each prints its wall time):
                  MGARD_TPU_SOLVER=scan sets at import): every level per
                  dim, the ratio within 1% of the default's, containers
                  cross-decoded with the default both ways, device times
-                 in turns with the matmul correction, S1 bit for bit
+                 beside the matmul correction's, S1 bit for bit
                  against its plain version at every level (9 to 1);
  23. unstructured - a tetrahedral mesh on the card: the unit cube of
                  8^3 cells, six tetrahedra each, refined 4 times
@@ -287,7 +291,14 @@ Phases (each prints its wall time):
                  at s = 0 and s = 1 the MGTU round trip within 1e-3 in
                  the s-norm, its ratio, decompose/recompose and
                  compress/decompress times, the CG iterations of each
-                 level; no kernel launch; the phase's peak memory;
+                 level; no kernel launch; the phase's peak memory; each
+                 container's bytes and error those before the mesh
+                 refusals below (which move no byte); then the meshes
+                 the JAX package refuses, built on the card (grids with
+                 an axis of fewer than two nodes, element tables of no
+                 rows refined, a negative node index through a round
+                 trip): each raises ValueError, no compress returns a
+                 buffer, and the card's allocated memory is what it was;
  24. multi-block - a 1024^3 float32 field (bench.py's kind, built in
                  float32 on the card slab by slab, its noise from a CUDA
                  generator), which the default Config splits into two
@@ -303,10 +314,8 @@ Phases (each prints its wall time):
                  peak RSS; one block's device encode/decode by CUDA
                  events and the encode's peak memory against the JAX
                  estimate of 4.485x; the 512^3 field in two slabs
-                 (max_block_bytes half its bytes), L-infinity 1e-3 with
-                 the same container and output with one block in flight
-                 (the serial order) as at the default depth, and REL
-                 1e-4 (norm max|v| block by block); at 512^3 Variable
+                 (max_block_bytes half its bytes), L-infinity 1e-3 and
+                 REL 1e-4 (norm max|v| block by block); at 512^3 Variable
                  slabs (dd_sizes 100, 200, 212)
                  at s = 0, sqrt(sum_b ||v_b - out_b||_0^2) <= 1e-3, and
                  N-D blocks of 256^3 (K5/K6 once a block) at L-infinity;
@@ -332,7 +341,8 @@ Phases (each prints its wall time):
                  at 65^3 HYBRID with two local levels and on a nonuniform
                  grid, LEVEL_BLOCKS and HYBRID at s = 0, FINE in float64;
  27. cli       - ``python -m mgard_tpu_torch`` in three processes at
-                 once, started before phase 26 and run beside it: compress
+                 once, started before phase 25 and run beside phases
+                 25-26 (their host-clock times contended): compress
                  of the main field (its container the main path's byte
                  for byte), decompress of that container (the output
                  within 1e-3) and inspect (its header lines); the same
@@ -487,6 +497,19 @@ class Phase:
         log(f"== phase {self.name}: {time.perf_counter() - self.t0:.3f} s"
             + (" (failed)" if exc[0] else ""))
         return False
+
+
+class Laps:
+    """The steps of a phase: each call logs the seconds since the last
+    (or since the laps began) on a line of its own."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self, step):
+        t = time.perf_counter()
+        log(f"-- step {step}: {t - self.t0:.3f} s")
+        self.t0 = t
 
 
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
@@ -1331,9 +1354,9 @@ def main_path(v_host):
                              f"trip at {SHAPE}: {counts}")
     if out.shape != v_host.shape or out.dtype != np.float32:
         raise AssertionError(f"output {out.shape} {out.dtype}")
-    if not np.isfinite(out).all():
+    err = card_max_err(v_host, out)
+    if not math.isfinite(err):
         raise AssertionError("non-finite output")
-    err = float(np.abs(out.astype(np.float64) - v_host).max())
     ratio = v_host.nbytes / len(buf)
     log(f"main path: max|v - out| = {err!r} (tolerance {TOL}), ratio "
         f"{ratio!r}, {len(buf)} bytes")
@@ -1538,7 +1561,7 @@ def two_pass_path(v_host, main_buf, main_counts):
         counts = _build.launch_counts()
     finally:
         sk._FUSED = fused
-    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    err = card_max_err(v_host, out)
     ratio = v_host.nbytes / len(buf)
     main_ratio = v_host.nbytes / len(main_buf)
     log(f"two-pass path: compress {1e3 * (t1 - t0):.3f} ms, decompress "
@@ -1551,8 +1574,7 @@ def two_pass_path(v_host, main_buf, main_counts):
     if counts != want:
         raise AssertionError(f"two-pass path launches {counts}, expected "
                              f"{want}")
-    if out.shape != v_host.shape or not np.isfinite(out).all() \
-            or not err <= TOL:
+    if out.shape != v_host.shape or not err <= TOL:
         raise AssertionError(f"two-pass path: output {out.shape}, error "
                              f"{err}")
     if buf != main_buf:
@@ -1603,8 +1625,7 @@ def lpk_path(v_host, main_buf, main_counts):
         cross_off = mt.decompress(buf)
     finally:
         transform._LPK = default
-    errs = [float(np.abs(o.astype(np.float64) - v_host).max())
-            for o in (out, cross_off, cross_on)]
+    errs = [card_max_err(v_host, o) for o in (out, cross_off, cross_on)]
     ratio = v_host.nbytes / len(buf)
     main_ratio = v_host.nbytes / len(main_buf)
     log(f"lpk path: compress {1e3 * (t1 - t0):.3f} ms, decompress "
@@ -1616,9 +1637,7 @@ def lpk_path(v_host, main_buf, main_counts):
     want = dict(main_counts, rm_dim0=2)
     if counts != want:
         raise AssertionError(f"lpk path launches {counts}, expected {want}")
-    if out.shape != v_host.shape or not all(
-            np.isfinite(o).all() for o in (out, cross_off, cross_on)) \
-            or not max(errs) <= TOL:
+    if out.shape != v_host.shape or not all(e <= TOL for e in errs):
         raise AssertionError(f"lpk path: output {out.shape}, errors {errs}")
     if not abs(ratio / main_ratio - 1) <= 0.01:
         raise AssertionError(f"lpk path: ratio {ratio} is not within 1% of "
@@ -1661,11 +1680,11 @@ def drive(label, v_host, config, tol=TOL, s=float("inf"), mode="abs"):
     counts = _build.launch_counts()
     if out.shape != v_host.shape or out.dtype != v_host.dtype:
         raise AssertionError(f"{label}: output {out.shape} {out.dtype}")
-    if not np.isfinite(out).all():
+    linf = card_max_err(v_host, out)
+    if not math.isfinite(linf):
         raise AssertionError(f"{label}: non-finite output")
     header, sections = fmt.read_container(buf)
     comp = compressor_for(header)
-    linf = float(np.abs(out.astype(np.float64) - v_host).max())
     err = linf if np.isinf(s) else snorm_error(comp.hier, out, v_host, s)
     del out
     bound = header.tolerance
@@ -2370,10 +2389,10 @@ def host_lossless_finish(label, v_host, lossless, want, started,
 def lz4_path(v_host, main_buf, main_counts):
     """BITPLANE_LZ4: the main path's launches, and each LZ4-decompressed
     section the unstaged BITPLANE container's (the main path's) byte for
-    byte; the LZ4 stages by the host clock."""
+    byte; the LZ4 decompress by the host clock."""
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.io import format as fmt
-    from mgard_tpu_torch.io.lz4_native import lz4_compress, lz4_decompress
+    from mgard_tpu_torch.io.lz4_native import lz4_decompress
 
     header, buf, _, counts = drive("BITPLANE_LZ4 path", v_host, mt.Config(
         lossless=mt.Lossless.BITPLANE_LZ4, adapt_lossless=False))
@@ -2385,10 +2404,9 @@ def lz4_path(v_host, main_buf, main_counts):
         r, ms = host_timed(lz4_decompress, s)
         raw.append(r)
         dec_ms += ms
-    enc_ms = sum(host_timed(lz4_compress, s)[1] for s in plain)
     log(f"BITPLANE_LZ4 path: sections {[len(s) for s in plain]} -> "
-        f"{[len(s) for s in staged]} bytes; LZ4 compress {enc_ms:.3f} ms, "
-        f"decompress {dec_ms:.3f} ms (host clock); each section the "
+        f"{[len(s) for s in staged]} bytes; LZ4 decompress {dec_ms:.3f} ms "
+        f"(host clock); each section the "
         f"unstaged container's byte for byte: {raw == plain}")
     if header.lossless != int(mt.Lossless.BITPLANE_LZ4) or raw != plain:
         raise AssertionError("BITPLANE_LZ4: sections differ from the "
@@ -2435,11 +2453,12 @@ def host_codec_paths(v_host, main_buf, main_counts, flat_counts):
     want = transform_counts(flat_counts)
     sizes = {"BITPLANE": len(main_buf)}
     lossless = mt.Lossless.NONE
-    sizes[lossless.name] = host_lossless_finish(
-        f"{lossless.name} path", v_host, lossless, want,
-        host_lossless_start(v_host, lossless), device_times=False)
+    none = host_lossless_start(v_host, lossless)
     sizes["BITPLANE_LZ4"] = lz4_path(v_host, main_buf, main_counts)
     zstd = zstd_paths(v_host)
+    sizes[lossless.name] = host_lossless_finish(
+        f"{lossless.name} path", v_host, lossless, want, none,
+        device_times=False)
     log(f"host codecs: zstd {zstd}; HUFFMAN_ZLIB's round trip started, its "
         f"host work (Huffman, zlib) goes on beside the phases that follow")
     return sizes, host_lossless_start(v_host, mt.Lossless.HUFFMAN_ZLIB)
@@ -2942,7 +2961,7 @@ def check_block_kernels(label, comp, v, tol, sections=None,
     return nwords
 
 
-def multiblock_default(v):
+def multiblock_default(v, lap):
     """The default compress of the 1024^3 field: two slabs along dim 0,
     L-infinity 1e-3, twice one slab's launches, block 1's sections those
     of a one-domain compress of its slab, one block's device times and
@@ -2972,6 +2991,7 @@ def multiblock_default(v):
         raise AssertionError(f"expected 2 slabs along dim 0: {header}")
     if not err <= TOL:
         raise AssertionError(f"multi-block error {err} exceeds {TOL}")
+    lap("1024^3 round trip")
 
     # block 1 against a one-domain compress of its slab
     half = v.shape[0] // 2
@@ -2997,10 +3017,14 @@ def multiblock_default(v):
         raise AssertionError(f"not launched on the multi-block path: "
                              f"{missing}")
     del one_out
+    lap("slab alone")
     vb = torch.from_numpy(slab).cuda()
     block_device_times(comp, vb, sh, ss)
+    lap("slab device times")
     check_block_kernels("slab kernels", comp, vb, header.tolerance, ss)
+    lap("slab kernels")
     nwords = check_block_kernels("slab kernels", comp, vb, OFFSET_TOL)
+    lap(f"slab kernels at {OFFSET_TOL}")
     if not nwords > 1 << 28:
         raise AssertionError(f"the stream at tol {OFFSET_TOL} holds "
                              f"{nwords} words, not over 2^28")
@@ -3014,13 +3038,10 @@ def multiblock_default(v):
 def two_slab_paths(v512):
     """The main field cut into two slabs along dim 0 (``max_block_bytes``
     half its bytes), L-infinity 1e-3 and REL 1e-4: the round trip at the
-    default pipeline depth and with one block in flight (the serial
-    order, which no setting gives: the JAX package's rule keeps ndev + 1
-    = 2 on one card), the same container and output; REL's norm max|v|
-    taken block by block on the card.  Returns {mode: (container,
-    launches of its compress)} for the sharded phase."""
+    default pipeline depth; REL's norm max|v| taken block by block on the
+    card.  Returns {mode: (container, launches of its compress)} for the
+    sharded phase."""
     import mgard_tpu_torch as mt
-    from mgard_tpu_torch import api
     from mgard_tpu_torch.io import format as fmt
     from mgard_tpu_torch.ops import _build
 
@@ -3052,29 +3073,11 @@ def two_slab_paths(v512):
             if header.norm != float(np.float32(vmax)):
                 raise AssertionError(f"REL norm {header.norm} is not "
                                      f"max|v| {vmax}")
-            continue
-        saved = api._pipeline_depth
-        try:
-            api._pipeline_depth = lambda ndev: 1
-            t0 = time.perf_counter()
-            b = mt.compress(v512, tol, config=cfg)
-            t1 = time.perf_counter()
-            o = mt.decompress(b)
-            t2 = time.perf_counter()
-        finally:
-            api._pipeline_depth = saved
-        same = b == buf and np.array_equal(o, out)
-        log(f"two slabs, 1 block in flight: compress {1e3 * (t1 - t0):.3f} "
-            f"ms, decompress {1e3 * (t2 - t1):.3f} ms (host clock); "
-            f"container and output the default depth's: {same}")
-        if not same:
-            raise AssertionError("depth 1 writes another container or "
-                                 "output")
-        del o, out
+        del out
     return bufs
 
 
-def variable_and_nd_blocks(v512):
+def variable_and_nd_blocks(v512, lap):
     """At 512^3: Variable slabs (dd_sizes) at s = 0, each block's
     ||v_b - out_b||_0 on the card, combined as sqrt(sum of squares) within
     1e-3; N-D blocks of ND_EDGE^3 at L-infinity, K5 and K6 once a
@@ -3095,6 +3098,7 @@ def variable_and_nd_blocks(v512):
         raise AssertionError(f"Variable slabs: edges {header.dd_edges}, "
                              f"combined error {total}")
     del out
+    lap("Variable slabs")
 
     _, header, _, out, counts, _, _ = round_trip(
         "N-D blocks", v512, TOL,
@@ -3108,9 +3112,10 @@ def variable_and_nd_blocks(v512):
             or counts["gpk_prolong_add"] != nblocks or not err <= TOL:
         raise AssertionError(f"N-D blocks: grid {header.dd_grid}, error "
                              f"{err}, launches {counts}")
+    lap("N-D blocks")
 
 
-def adjust_shape_path():
+def adjust_shape_path(lap):
     """A lopsided field with Config(adjust_shape=True): stored in the
     rebalanced shape, returned in its own; K1-K6 against their plain
     versions at the stored shape."""
@@ -3119,6 +3124,7 @@ def adjust_shape_path():
     from mgard_tpu_torch import api
 
     w = smooth_field_slabs(ADJUST_SHAPE, seed=SEED + 1)
+    lap("adjust_shape field")
     _, header, sections, out, _, _, _ = round_trip(
         "adjust_shape", w, TOL, config=mt.Config(adjust_shape=True))
     err = card_max_err(w, out)
@@ -3130,9 +3136,11 @@ def adjust_shape_path():
         raise AssertionError(f"adjust_shape: stored {header.shape}, "
                              f"orig_shape {header.orig_shape}, error {err}")
     del out
+    lap("adjust_shape round trip")
     vw = torch.from_numpy(w.reshape(header.shape)).cuda()
     check_block_kernels("adjust_shape kernels", api.compressor_for(header),
                         vw, header.tolerance, sections)
+    lap("adjust_shape kernels")
 
 
 def multiblock_paths(v512):
@@ -3140,16 +3148,17 @@ def multiblock_paths(v512):
     import torch
 
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    lap = Laps()
     v = smooth_field_slabs(MB_SHAPE)
     log(f"multi-block field {MB_SHAPE} float32, {v.nbytes} bytes, built "
-        f"in {time.perf_counter() - t0:.3f} s on the card, copied to the "
-        f"host")
-    counts = multiblock_default(v)
+        f"on the card, copied to the host")
+    lap("1024^3 field")
+    counts = multiblock_default(v, lap)
     del v
     two_slabs = two_slab_paths(v512)
-    variable_and_nd_blocks(v512)
-    adjust_shape_path()
+    lap("two slabs")
+    variable_and_nd_blocks(v512, lap)
+    adjust_shape_path(lap)
     torch.cuda.empty_cache()
     return counts, two_slabs
 
@@ -3735,6 +3744,7 @@ def long_series(prebuilt):
 
     shape = (LONG_SERIES,)
     gc.collect()
+    lap = Laps()
     v = smooth_field_card(shape)
     v_host = v.cpu().numpy()
     t0 = time.perf_counter()
@@ -3756,6 +3766,7 @@ def long_series(prebuilt):
         raise AssertionError("the series must be one domain of at most "
                              f"{bk.SEGMENT_CAPACITY} segments")
     kept = device_tables_bytes()
+    lap("(a) field and hierarchy")
     buf, header, sections, out, counts, tc, td = round_trip(
         "long series", v_host, TOL)
     err = card_max_err(v_host, out)
@@ -3770,7 +3781,9 @@ def long_series(prebuilt):
         "gpk_detail": 0, "gpk_prolong_add": 0, "extract_coarse_3d": 0})
     if not err <= TOL:
         raise AssertionError(f"long series: error {err} exceeds {TOL}")
+    lap("(a) round trip")
     enc = long_device_times("long series", comp, v, header, sections)
+    lap("(a) device times")
     per_level = {}
     for n, _, _, ms in enc:
         per_level[n] = per_level.get(n, 0.0) + ms
@@ -3789,12 +3802,16 @@ def long_series(prebuilt):
         f"{bound_ms(8 * n_top, 0)[0]:.4f} ms for b and x alone), "
         f"{top_bound / top_ms:.1%}")
     del b
+    lap("(a) top level's S1 in turns")
     with SolveProbe(hier, check=True) as probe:
         comp.encode_device(v, header.tolerance)
     probe.verdict("long series")
+    lap("(a) S1 against its plain version")
     table_costs(hier)
+    lap("(a) table costs")
     check_block_kernels("long series kernels", api.compressor_for(header), v,
                         header.tolerance, sections, stencil=False)
+    lap("(a) kernels")
     del v
     mt.release_cache()
     torch.cuda.empty_cache()
@@ -3811,6 +3828,7 @@ def long_field():
     from mgard_tpu_torch.ops import tridiag
 
     gc.collect()
+    lap = Laps()
     v = smooth_field_card(LONG_FIELD, seed=SEED + 1)
     v_host = v.cpu().numpy()
     hier = mt.Hierarchy(LONG_FIELD)
@@ -3821,6 +3839,7 @@ def long_field():
     log(f"long field {LONG_FIELD}: L = {hier.L}, per-dim (level, dim) "
         f"pairs {pairs}, K1 levels {k1}")
     kept = device_tables_bytes()
+    lap("(b) field")
     buf, header, sections, out, counts, tc, td = round_trip(
         "long field", v_host, TOL)
     err = card_max_err(v_host, out)
@@ -3835,9 +3854,12 @@ def long_field():
     if not err <= TOL:
         raise AssertionError(f"long field: error {err} exceeds {TOL}")
     comp = compressor_for(header)
+    lap("(b) round trip")
     long_device_times("long field", comp, v, header, sections)
+    lap("(b) device times")
     check_block_kernels("long field kernels", comp, v, header.tolerance,
                         sections)
+    lap("(b) kernels")
     # S1 at level 6 along each axis, on the correction's own input, in
     # float32 (the kernels line's S1) and in float64 (mass_solve_f64)
     l = hier.L
@@ -3852,21 +3874,30 @@ def long_field():
         for d in transform._level_dims(hier, l):
             B = B.contiguous()
             lev = hier.dims[d][l - 1]
-            entry = s1_record(B, lev, d, name)
+            label = f"S1 on {tuple(B.shape)} {B.dtype} axis {d}"
+            if name in entries:
+                _, same, ms = s1_turns(B, lev, d, label)
+                if not same:
+                    raise AssertionError(f"{label}: S1 differs from its "
+                                         "plain version")
+                lib = ""
+            else:
+                entries[name] = s1_record(B, lev, d, name)
+                ms = entries[name]["ms"]
+                lib = f", tensordot {entries[name]['library_ms']:.4f} ms"
             geo, per_sm = s1_launch(B, lev, d)
-            log(f"long field level {l} axis {d}: S1 on {tuple(B.shape)} "
-                f"{B.dtype} {entry['ms']:.4f} ms, "
-                f"{entry['bound_ms'] / entry['ms']:.1%} of its byte bound, "
-                f"tensordot {entry['library_ms']:.4f} ms; route "
+            log(f"long field level {l} axis {d}: {label} {ms:.4f} ms, "
+                f"{bound_ms(s1_bytes(B, d), 0)[0] / ms:.1%} of its byte "
+                f"bound{lib}; route "
                 f"{geo.route}, {geo.lines} lines x {geo.threads} threads a "
                 f"block, run {geo.run}, {geo.nseg} segment(s), overlap "
                 f"{geo.overlap}, {per_sm} blocks an SM, [walks, re-solves] "
                 f"{s1_walks(B, lev, d)}")
-            entries.setdefault(name, entry)
             B = tridiag.mass_solve(B, lev.offdiag, lev.divisors, d)
         del B
     del top
     torch.cuda.empty_cache()
+    lap("(b) S1 at level 6, float32 and float64")
     # the field as float64 at s = inf and s = 0: the encode peaks; at
     # s = inf the device encode and decode, the path float64 S1 sits in
     v64 = v.double()
@@ -3880,6 +3911,7 @@ def long_field():
         del comp
     del v64
     torch.cuda.empty_cache()
+    lap("(b) float64 peaks and device times")
     return counts, entries["S1 " + SOLVE_NAME], entries["mass_solve_f64"]
 
 
@@ -3925,8 +3957,8 @@ def s1_norm_levels(shape=(256, 256, 256)):
     solves of every finite s-norm but s = 0, which is the L2 norm and
     solves nothing, and of QoI's component norms): each held against its
     plain version (:class:`SolveProbe`: bit for bit up to SOLVE_PLAIN_MAX
-    nodes, above that by its residual), then timed in TURNS queued turns
-    beside a float64 tensordot with the dense inverse."""
+    nodes, above that by its residual), with its route and walks; the
+    first solve of each level timed in TURNS queued turns."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.ops import norms, tridiag
@@ -3948,32 +3980,30 @@ def s1_norm_levels(shape=(256, 256, 256)):
     finally:
         norms.mass_solve = saved
     del u
-    rows, total = [], [0.0, 0.0, 0.0]
+    rows, timed = [], set()
     for b, divisors, axis in inputs:
         lev = next(lv for lv in hier.dims[axis] if lv.divisors is divisors)
-        label = f"float64 S1 on {tuple(b.shape)} axis {axis}"
-        with tridiag.table_scope():
-            ms = turns_median(label, lambda: tridiag.mass_solve(
-                b, lev.offdiag, lev.divisors, axis))
-        lib_ms, lib = s1_library_ms(b, lev, axis, label)
-        del lib
+        ms = share = None
         bound = bound_ms(s1_bytes(b, axis), 0)[0]
-        for i, t in enumerate((ms, bound, lib_ms)):
-            total[i] += t
+        if b.shape not in timed:
+            timed.add(b.shape)
+            with tridiag.table_scope():
+                ms = turns_median(
+                    f"float64 S1 on {tuple(b.shape)} axis {axis}",
+                    lambda: tridiag.mass_solve(b, lev.offdiag, lev.divisors,
+                                               axis))
+            share = f"{bound / ms:.1%}"
+            ms = round(ms, 4)
         geo, per_sm = s1_launch(b, lev, axis)
-        rows.append((tuple(b.shape), axis, round(ms, 4), round(bound, 4),
-                     f"{bound / ms:.1%}", round(lib_ms, 4), geo.route,
-                     geo.threads, geo.blocks, per_sm,
+        rows.append((tuple(b.shape), axis, ms, round(bound, 4), share,
+                     geo.route, geo.threads, geo.blocks, per_sm,
                      s1_walks(b, lev, axis)))
     del inputs
     torch.cuda.empty_cache()
     log(f"float64 S1 in the {shape} s-norm components, {len(rows)} solves "
-        f"(shape, axis, median ms, bound ms with its tables, share, "
-        f"tensordot median ms, route, threads a block, blocks, blocks an "
-        f"SM, [walks, re-solves]): {rows}; in all S1 {total[0]:.4f} ms, "
-        f"bound "
-        f"{total[1]:.4f} ms ({total[1] / total[0]:.1%}), tensordot "
-        f"{total[2]:.4f} ms")
+        f"(shape, axis, median ms of the first solve of a level, bound ms "
+        f"with its tables, share, route, threads a block, blocks, blocks "
+        f"an SM, [walks, re-solves]): {rows}")
     if len(rows) != len(probe.checked) or not rows:
         raise AssertionError(f"float64 S1 norm levels: {len(rows)} solves "
                              f"timed, {len(probe.checked)} checked")
@@ -3990,11 +4020,13 @@ def long_square():
     from mgard_tpu_torch.io import format as fmt
     from mgard_tpu_torch.ops import bitplane, bp_kernels as bk
 
+    lap = Laps()
     v = smooth_field_card(LONG_SQUARE, seed=SEED + 2).cpu().numpy()
     hier = mt.Hierarchy(LONG_SQUARE)
     pairs = fallback_pairs(hier)
     header, buf, comp, counts = drive("long square s = 0", v, mt.Config(),
                                       s=0.0)
+    lap("(c) round trip")
     expect_launches("long square", counts, {
         SOLVE_NAME: 2 * len(pairs), "bp_decode_condense": hier.L + 1,
         "bp_decode_condense_f32": 0})
@@ -4025,19 +4057,21 @@ def long_square():
         "long square float64 s = 0", comp, v64, TOL)
     del v64, comp
     torch.cuda.empty_cache()
+    lap("(c) K11 and the float64 peak")
 
 
 def scan_solver(v_host, main_buf):
     """(d) the main path's 512^3 field with transform._SOLVER = "scan"
     (what MGARD_TPU_SOLVER=scan sets at import): every level takes the
     per-dim correction; containers cross-decoded with the default; device
-    times in turns with the matmul correction; S1 at level 9."""
+    times beside the matmul correction's; S1 at level 9."""
     import torch
     import mgard_tpu_torch as mt
     from mgard_tpu_torch.api import compressor_for
     from mgard_tpu_torch.io import format as fmt
     from mgard_tpu_torch.ops import transform
 
+    lap = Laps()
     hier = mt.Hierarchy(SHAPE)
     saved = transform._SOLVER
     try:
@@ -4045,15 +4079,13 @@ def scan_solver(v_host, main_buf):
         pairs = fallback_pairs(hier)
         buf, header, sections, out, counts, _, _ = round_trip(
             "scan solver", v_host, TOL)
-        err = float(np.abs(out.astype(np.float64) - v_host).max())
+        err = card_max_err(v_host, out)
         del out
         # the default container decoded with the scan correction
-        cross_a = float(np.abs(mt.decompress(main_buf).astype(np.float64)
-                               - v_host).max())
+        cross_a = card_max_err(v_host, mt.decompress(main_buf))
     finally:
         transform._SOLVER = saved
-    cross_b = float(np.abs(mt.decompress(buf).astype(np.float64)
-                           - v_host).max())
+    cross_b = card_max_err(v_host, mt.decompress(buf))
     ratio, main_ratio = v_host.nbytes / len(buf), v_host.nbytes / len(
         main_buf)
     log(f"scan solver: max|v - out| = {err!r}, ratio {ratio!r} (default "
@@ -4066,15 +4098,17 @@ def scan_solver(v_host, main_buf):
             or not abs(ratio / main_ratio - 1) <= 0.01:
         raise AssertionError(f"scan solver: pairs {len(pairs)}, errors "
                              f"{err} {cross_a} {cross_b}, ratio {ratio}")
+    lap("(d) round trip and cross-decodes")
     # device times in turns, and S1 at level 9 against its plain version
     comp = compressor_for(header)
     v = torch.from_numpy(v_host).cuda()
     h2, s2 = fmt.read_container(buf)
     exps, words = comp.stream_tensors(h2, s2)
     try:
-        for solver in ("matmul", "scan", "scan", "matmul"):
+        for solver in ("matmul", "scan"):
             transform._SOLVER = solver
             time_device(comp, v, exps, words, f"correction {solver}")
+        lap("(d) device times")
         transform._SOLVER = "scan"
         with SolveProbe(hier, check=True) as probe:
             transform._correction(hier, transform.decompose(hier, v)[9], 9)
@@ -4083,6 +4117,7 @@ def scan_solver(v_host, main_buf):
     probe.verdict("scan solver level 9")
     del v, exps, words
     torch.cuda.empty_cache()
+    lap("(d) S1 at level 9")
     return counts
 
 
@@ -4093,10 +4128,14 @@ def long_dims(v_host, main_buf, prebuilt):
     import mgard_tpu_torch as mt
 
     torch.cuda.empty_cache()
+    lap = Laps()
     check_solve_layouts()
+    lap("S1 layouts")
     counts = {"series": long_series(prebuilt)}
     counts["field"], entry, entry64 = long_field()
+    lap = Laps()
     s1_norm_levels()
+    lap("float64 S1 at the s-norm components")
     long_square()
     counts["scan"] = scan_solver(v_host, main_buf)
     mt.release_cache()
@@ -4307,7 +4346,7 @@ def x_abs_path(v_host):
     buf, enc_counts, enc_ms = counted_ms(mc.compress_mgard_x, v_host, TOL,
                                          zstd=False)
     out, dec_counts, dec_ms = counted_ms(mt.decompress, buf)
-    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    err = card_max_err(v_host, out)
     del out
     log(f"X ABS {X_SHAPE}: {len(buf)} bytes, ratio "
         f"{v_host.nbytes / len(buf)!r}, max|v - out| = {err!r} (tolerance "
@@ -4394,8 +4433,8 @@ def x_rel_path(v_host, abs_counts):
     buf, enc_counts, enc_ms = counted_ms(mc.compress_mgard_x, v_host,
                                          X_REL_TOL, zstd=False, mode="rel")
     out, dec_counts, dec_ms = counted_ms(mt.decompress, buf)
-    bound = X_REL_TOL * float(np.abs(v_host).max())
-    err = float(np.abs(out.astype(np.float64) - v_host).max())
+    bound = X_REL_TOL * card_max_abs(v_host)
+    err = card_max_err(v_host, out)
     header, _ = mc.read_container(buf)
     norm = header["error_control"]["norm_of_original_data"]
     log(f"X REL {X_SHAPE}: norm {norm!r}, {len(buf)} bytes, ratio "
@@ -4689,6 +4728,7 @@ def zfp_paths(v_host):
     from mgard_tpu_torch.models import zfp
 
     v = torch.from_numpy(v_host).cuda()
+    top = float(v.abs().max())
     shape = v_host.shape
     nblocks = int(np.prod(zfp._blocked(shape)))
     errs = {}
@@ -4700,20 +4740,19 @@ def zfp_paths(v_host):
         meta = zfp.ZfpMeta(shape, "float32", rate).pack()
         want = len(meta) + nblocks + zfp._num_units(shape) \
             + 4 * rate * zfp._num_groups(shape)
-        err = float(np.abs(out.astype(np.float64) - v_host).max())
+        err = card_max_err(v_host, out)
         e, m, kept = zfp._encode_impl(v, rate)
         enc_dev = cuda_ms(lambda: zfp._encode_impl(v, rate), 3)
         dec_dev = cuda_ms(lambda: zfp._decode_impl(e, m, kept, shape, rate,
                                                    "float32"), 3)
         log(f"zfp rate {rate} {shape}: {len(buf)} bytes (rate bits a value "
             f"plus side bytes: {want}), ratio {v_host.nbytes / len(buf)!r},"
-            f" max|v - out| = {err!r} (max|v| "
-            f"{float(np.abs(v_host).max())!r}); API {enc_ms:.3f} / "
+            f" max|v - out| = {err!r} (max|v| {top!r}); API {enc_ms:.3f} / "
             f"{dec_ms:.3f} ms (host clock, numpy in and out); device encode "
             f"{enc_dev:.3f} ms, decode {dec_dev:.3f} ms (CUDA events)")
-        if len(buf) != want or not np.isfinite(out).all():
+        if len(buf) != want or not math.isfinite(err):
             raise AssertionError(f"zfp rate {rate}: {len(buf)} bytes, "
-                                 f"finite {np.isfinite(out).all()}")
+                                 f"error {err}")
         errs[rate] = err
         del e, m, kept, out
         crop = np.ascontiguousarray(v_host[tuple(slice(0, n)
@@ -4729,7 +4768,6 @@ def zfp_paths(v_host):
             raise AssertionError(f"zfp rate {rate}: card and CPU differ")
     # the error falls as the rate rises, and at rate 16 meets
     # tests/test_zfp.py's bound for that rate
-    top = float(np.abs(v_host).max())
     if not (errs[8] > errs[16] and errs[16] < 1e-2 * top + 1e-4):
         raise AssertionError(f"zfp errors {errs}")
     del v
@@ -4746,6 +4784,11 @@ UNST_NODES = 2146689
 UNST_TETS = 12582912
 # (s, tolerance of ||u - u'||_s) of its round trips
 UNST_CASES = ((0.0, 1e-3), (1.0, 1e-3))
+# (container bytes, ||u - u'||_s) of those round trips before the mesh
+# builders and refinement learned to refuse a mesh with no elements
+# (which moves no byte)
+UNST_BEFORE = {0.0: (784565, 0.0003263931477196724),
+               1.0: (1720609, 0.00032658590913060603)}
 
 
 def unstructured_field(nodes, seed=SEED):
@@ -4809,16 +4852,75 @@ def unstructured_path():
                 f"recompose {t_rec:.3f} ms (max|u - R(D(u))| {rt!r}), "
                 f"compress {t_c:.3f} ms, decompress {t_d:.3f} ms (host "
                 f"clock, synchronized)")
-            if not err <= tol:
+            if not err <= tol or (len(buf), err) != UNST_BEFORE[s]:
                 raise AssertionError(f"unstructured s = {s}: error {err} "
-                                     f"exceeds {tol}")
+                                     f"exceeds {tol}, or the bytes or the "
+                                     f"error moved from {UNST_BEFORE[s]}")
         del u, hier, fine
     counts = _build.launch_counts()
     log(f"unstructured: peak device memory {peak.bytes} bytes "
         f"(elements of the finest level alone {UNST_TETS * 4 * 8} bytes)")
     expect_launches("unstructured", counts, {k: 0 for k in counts})
     torch.cuda.empty_cache()
+    mesh_refusals()
     return results
+
+
+def mesh_refusals():
+    """The meshes that the JAX package refuses, built on the card: grids
+    with fewer than two nodes along an axis, element tables of no rows
+    refined once, and a negative node index through a hierarchy, compress
+    and decompress; each must raise ValueError, no compress may return a
+    buffer, and the card's allocated memory must be what it was."""
+    import torch
+    from mgard_tpu_torch import unstructured as un
+
+    tri = [[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]
+    tet = [[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+           [0.0, 0.0, 1.0]]
+    buffers = []
+
+    def mesh_round_trip(nodes, elements, L):
+        hier = un.UniformMeshHierarchy(
+            un.MeshLevel(nodes, elements, device="cuda"), L)
+        buf = un.compress(hier, torch.linspace(
+            0.0, 1.0, hier.ndof(), dtype=torch.float64, device="cuda"),
+            0.0, 0.1)
+        buffers.append(len(buf))
+        return un.decompress(hier, buf)
+
+    cases = [(f"triangles {n}", lambda n=n: un.structured_triangle_mesh(
+        *n, device="cuda")) for n in ((2, 1), (1, 1), (1, 2), (0, 3))]
+    cases += [(f"tetrahedra {n}", lambda n=n: un.structured_tet_mesh(
+        n, device="cuda")) for n in ((1, 2, 3), (2, 2, 1), (0, 2, 2))]
+    cases += [(f"no ({k}-node) elements, refined once",
+               lambda x=x, k=k: mesh_round_trip(x, np.zeros((0, k), np.int64),
+                                                1))
+              for k, x in ((3, tri), (4, tet))]
+    cases += [("a negative index, two refinements",
+               lambda: mesh_round_trip(tri, [[0, 1, -1]], 2))]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = []
+    for label, call in cases:
+        try:
+            call()
+            got.append((label, None, None))
+        except Exception as e:      # the type is what is checked
+            got.append((label, type(e).__name__, str(e)))
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"mesh refusals on the card (case, exception, message): {got}; "
+        f"buffers compress returned {buffers}; allocated {before} bytes "
+        f"before, "
+        f"{after} after; {time.perf_counter() - t0:.3f} s")
+    if any(e != "ValueError" for _, e, _ in got) or buffers \
+            or after != before:
+        raise AssertionError("a mesh that the JAX package refuses was not "
+                             "refused with ValueError, or compress returned "
+                             "a buffer, or memory stayed allocated")
 
 
 def run_cli(*args):
@@ -4849,9 +4951,10 @@ def finish_cli(proc):
 
 
 def cli_start(v_host, main_buf):
-    """The CLI's processes, started here and left to run beside the phase
-    that follows (the reference checks, which time nothing): the main
-    field and the main path's container written to a temporary
+    """The CLI's processes, started here and left to run beside the phases
+    that follow (sharded, examples and the reference checks, whose
+    host-clock times they contend): the main field and the main path's
+    container written to a temporary
     directory, then ``python -m mgard_tpu_torch`` compress of the field,
     decompress of that container and inspect of it, in three processes
     at once.  :func:`cli_finish` checks that the compress wrote the same
@@ -4909,7 +5012,7 @@ def cli_finish(v_host, main_buf, started):
         del out
     log(f"cli compress: {said!r} in {t_c:.3f} s; decompress: {said_d!r} in "
         f"{t_d:.3f} s; inspect in {t_i:.3f} s (three processes at once, "
-        f"beside the reference phase; host clock); the compress's "
+        f"beside phases 25-26; host clock); the compress's "
         f"container is the main path's byte for byte: {same}; max|v - out| "
         f"= {err!r} (tolerance {TOL}); in this process, launches {counts}, "
         f"its output the process's bit for bit: {same_out}")
@@ -4949,9 +5052,7 @@ def sharded_path(v_host, two_slabs):
         counts = _build.launch_counts()
         err = None
         if mode == ErrorMode.ABS:
-            out = mt.decompress(buf)
-            err = float(np.abs(out.astype(np.float64) - v_host).max())
-            del out
+            err = card_max_err(v_host, mt.decompress(buf))
         log(f"sharded {mode.name}: {len(buf)} bytes, compress "
             f"{t_s:.3f} ms (host clock); the API's container for the "
             f"same slabs byte for byte: {buf == ref}; max|v - out| = {err!r}; "
@@ -5119,9 +5220,7 @@ def sweep_finish(v_host, started):
         raise AssertionError(f"sweep: no reading for {missing}; {failed}")
     width = int(table["default_knobs"]["MGARD_TPU_CHUNK_GROUPS"])
     header = fmt.read_container(buf)[0]
-    out = mt.decompress(buf)
-    err = float(np.abs(out.astype(np.float64) - v_host).max())
-    del out
+    err = card_max_err(v_host, mt.decompress(buf))
     launches = {k: n for k, n in fresh["launches"].items() if n}
     log(f"fresh process under the swept table with MGARD_TPU_GPK=0 "
         f"MGARD_TPU_XK=0: {t_fresh:.3f} s (host clock); chunk_groups "
@@ -5362,10 +5461,12 @@ def main() -> int:
     del prebuilt
 
     # the sweep's processes run beside the phases from "multi-block" to
-    # "cli", the CLI's beside the reference checks
+    # "cli", the CLI's beside those from "sharded" to "reference"
     sweep_run = sweep_start(v_host)
     with Phase("multi-block"):
         _, two_slabs = multiblock_paths(v_host)
+
+    cli_run = cli_start(v_host, buf)
 
     with Phase("sharded"):
         sharded_counts = sharded_path(v_host, two_slabs)
@@ -5375,7 +5476,6 @@ def main() -> int:
     with Phase("examples"):
         example_paths()
 
-    cli_run = cli_start(v_host, buf)
     with Phase("reference"):
         reference_check((65, 65, 65), seed=1)
         reference_check((32, 256, 256), seed=2)

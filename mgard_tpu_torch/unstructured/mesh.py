@@ -45,6 +45,8 @@ class IncidenceTable:
 
     def __init__(self, index: torch.Tensor, n: int):
         m = index.numel()
+        if m and bool(index.min() < 0):
+            raise ValueError("node indices must be non-negative")
         order = torch.sort(index, stable=True).indices
         target = index[order]
         counts = torch.bincount(index, minlength=n)
@@ -184,6 +186,9 @@ def refine_uniform(mesh: MeshLevel) -> MeshLevel:
     if d not in (2, 3):
         raise ValueError("only triangles and tetrahedra are supported")
     els = mesh.elements
+    if els.shape[0] == 0:
+        # the JAX package's refined table of no rows has shape (0,)
+        raise ValueError("elements must be (E, 3) or (E, 4)")
     n_old, n_el = mesh.ndof, els.shape[0]
     pairs = _edge_pairs(d)
     a = torch.cat([els[:, i] for i, _ in pairs])
@@ -217,9 +222,17 @@ def refine_uniform(mesh: MeshLevel) -> MeshLevel:
                      edge_parents=edges, device=mesh.device)
 
 
+def _need_cells(n) -> None:
+    """A structured grid with fewer than two nodes along an axis has no
+    cell: the JAX package's builders refuse its empty element table."""
+    if min(n) < 2:
+        raise ValueError("elements must be (E, 3) or (E, 4)")
+
+
 def structured_triangle_mesh(nx: int, ny: int, device=None) -> MeshLevel:
     """Convenience root mesh: an (nx x ny)-vertex unit square split into
     triangles (two per cell)."""
+    _need_cells((nx, ny))
     dev = _device(device)
     xs, ys = np.meshgrid(np.linspace(0, 1, nx), np.linspace(0, 1, ny),
                          indexing="ij")
@@ -240,8 +253,9 @@ _KUHN = ((0, 1, 3, 7), (0, 1, 5, 7), (0, 2, 3, 7), (0, 2, 6, 7),
 
 def structured_tet_mesh(n: Tuple[int, int, int], device=None) -> MeshLevel:
     """Unit-cube root mesh: each hex cell split into 6 tetrahedra."""
-    dev = _device(device)
     nx, ny, nz = n
+    _need_cells(n)
+    dev = _device(device)
     ax = [np.linspace(0, 1, k) for k in (nx, ny, nz)]
     xs, ys, zs = np.meshgrid(*ax, indexing="ij")
     nodes = np.stack([xs.reshape(-1), ys.reshape(-1), zs.reshape(-1)],

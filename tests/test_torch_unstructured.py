@@ -291,6 +291,69 @@ def test_compress_refusals():
         P.decompress(other, buf)
 
 
+_TRI = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+_TET = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                 [0.0, 0.0, 1.0]])
+
+
+def _round_trip(pkg, mesh, L):
+    """A hierarchy of ``L`` refinements of ``mesh``, then compress and
+    decompress of a ramp on it (s = 0, tolerance 0.1)."""
+    h = pkg.UniformMeshHierarchy(mesh, L)
+    u = np.linspace(0.0, 1.0, h.ndof())
+    if pkg is J:
+        return J.decompress(h, J.compress(h, u, s=0.0, tolerance=0.1))
+    return P.decompress(h, P.compress(h, u, 0.0, 0.1))
+
+
+# (JAX call, port call, the exception both raise: None where both accept)
+REFUSALS = {
+    **{f"tri{n}": (lambda n=n: J.structured_triangle_mesh(*n),
+                   lambda n=n: P.structured_triangle_mesh(*n, device=CPU),
+                   ValueError)
+       for n in ((2, 1), (1, 1), (1, 2), (0, 3))},
+    **{f"tet{n}": (lambda n=n: J.structured_tet_mesh(n),
+                   lambda n=n: P.structured_tet_mesh(n, device=CPU),
+                   ValueError)
+       for n in ((1, 2, 3), (2, 2, 1), (0, 2, 2))},
+    **{f"empty (0, {k}) round trip": (
+        lambda k=k, x=x: _round_trip(
+            J, J.MeshLevel(x, np.zeros((0, k), np.int64)), 1),
+        lambda k=k, x=x: _round_trip(
+            P, P.MeshLevel(x, np.zeros((0, k), np.int64), device=CPU), 1),
+        ValueError) for k, x in ((3, _TRI), (4, _TET))},
+    "empty (0, 3) level": (
+        lambda: J.MeshLevel(_TRI, np.zeros((0, 3), np.int64)),
+        lambda: P.MeshLevel(_TRI, np.zeros((0, 3), np.int64), device=CPU),
+        None),
+    # JAX wraps -1 to the last node, leaves a node of no element after two
+    # refinements and fails on the NaN quanta; the port refuses the index
+    "negative index round trip": (
+        lambda: _round_trip(J, J.MeshLevel(_TRI, [[0, 1, -1]]), 2),
+        lambda: _round_trip(P, P.MeshLevel(_TRI, [[0, 1, -1]], device=CPU),
+                            2),
+        ValueError),
+}
+
+
+def _raised(call):
+    try:
+        call()
+    except Exception as e:      # the type is what the test compares
+        return type(e)
+    return None
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_refusals_match_jax(case):
+    """Both packages raise the same exception type on the same call (or
+    both accept it): a mesh with no elements is refused before compress
+    can return a buffer for it."""
+    jax_call, port_call, want = REFUSALS[case]
+    assert _raised(jax_call) is want
+    assert _raised(port_call) is want
+
+
 def test_entry_points_need_a_card_or_the_cpu():
     """Without a card, a mesh asked for without device='cpu' raises."""
     if torch.cuda.is_available():
