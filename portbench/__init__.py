@@ -1,0 +1,3 @@
+"""The benchmark of mgard_tpu_torch on the card: ``python3 portbench/run.py
+--workload <cell> --seed <n> --seconds <s> --trace <0|1>`` from the root
+of a checkout.  See ``run.py``."""
