@@ -79,7 +79,7 @@ from ..ops.quantize import (TORCH_DTYPE, dequantize_blocks,
                             supremum_quantum)
 from ..ops.tridiag import along_axis, table_scope
 from ..utils import debug
-from ..utils.log import Timer
+from ..utils.log import span
 
 _F64 = np.dtype(np.float64)
 # Small domains get per-group exponents (compressor.py:79-86) ...
@@ -366,7 +366,7 @@ class Compressor:
         """decompose + quantize + encode on the device: ``(exponents,
         words, count, status)`` tensors, not yet read back; for a host
         lossless ``(flat integer stream, status)``."""
-        with table_scope():
+        with span("mgard.encode"), table_scope():
             if self.lossless in _HOST_LOSSLESS:
                 return self._quantized_flat(v, abs_tol)
             return self._encode_device(v, abs_tol)
@@ -396,7 +396,7 @@ class Compressor:
         """Decode + dequantize + recompose on the device; ``lossless`` is
         the container's (default: this compressor's)."""
         lossless = self.lossless if lossless is None else lossless
-        with table_scope():
+        with span("mgard.decode"), table_scope():
             return self._decode_device(exponents, words, abs_tol, lossless)
 
     def _decode_device(self, exponents, words, abs_tol, lossless):
@@ -535,7 +535,7 @@ class Compressor:
         if mode == ErrorMode.REL:
             norm = float(self.norm(v))
             abs_tol = float(tolerance) * norm
-        with Timer("compress (device)", v.numel() * v.element_size()):
+        with span("compress (device)", v.numel() * v.element_size()):
             sections = self.sections_from_outputs(
                 *self.encode_device(v, abs_tol))
         header = fmt.Header(

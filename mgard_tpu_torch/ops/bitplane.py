@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.log import span
 from .bp_kernels import (GROUP, butterfly, bp_decode_condense,
                          bp_decode_condense_f32, bp_encode_condense,
                          bp_quant_condense, bp_quant_max_segments, chunked,
@@ -196,25 +197,26 @@ def encode_segments(segs, inv_q: float, C: int = 0):
     device; only ``words[:count]`` is meaningful and status is 1 for
     overflow, 2 for non-finite input.
     """
-    C = C or CHUNK_GROUPS
-    segs = [s.reshape(-1).contiguous() for s in segs]
-    device = segs[0].device
-    ncs = [num_chunks_tiled(s.numel(), C) for s in segs]
-    total_chunks = sum(ncs)
-    cap_rows = total_chunks * (GROUP + 1)
+    with span("mgard.bitplane"):
+        C = C or CHUNK_GROUPS
+        segs = [s.reshape(-1).contiguous() for s in segs]
+        device = segs[0].device
+        ncs = [num_chunks_tiled(s.numel(), C) for s in segs]
+        total_chunks = sum(ncs)
+        cap_rows = total_chunks * (GROUP + 1)
 
-    zmax, flags = bp_quant_max_segments(segs, ncs, C, inv_q)
-    e = _bit_length32(zmax)
-    offsets = _offsets(e)
-    words = torch.zeros(cap_rows * C, dtype=torch.int32, device=device)
-    a = 0
-    for seg, nc in zip(segs, ncs):
-        bp_quant_condense(seg, nc, C, inv_q, offsets[a:a + nc],
-                          e[a:a + nc], words)
-        a += nc
-    count = e.sum(dtype=torch.int64) * C
-    status = flags.max()
-    return e.to(torch.uint8), words, count, status
+        zmax, flags = bp_quant_max_segments(segs, ncs, C, inv_q)
+        e = _bit_length32(zmax)
+        offsets = _offsets(e)
+        words = torch.zeros(cap_rows * C, dtype=torch.int32, device=device)
+        a = 0
+        for seg, nc in zip(segs, ncs):
+            bp_quant_condense(seg, nc, C, inv_q, offsets[a:a + nc],
+                              e[a:a + nc], words)
+            a += nc
+        count = e.sum(dtype=torch.int64) * C
+        status = flags.max()
+        return e.to(torch.uint8), words, count, status
 
 
 def decode_segments(exponents: torch.Tensor, words: torch.Tensor, sizes,
@@ -231,19 +233,20 @@ def decode_segments(exponents: torch.Tensor, words: torch.Tensor, sizes,
     ncs = [num_chunks_tiled(int(n), C) for n in sizes]
     if exponents.numel() != sum(ncs):
         raise ValueError("exponent count does not match the segments")
-    e = exponents.to(torch.int32)
-    offsets = _offsets(e)
-    outs = []
-    a = 0
-    for n, nc in zip(sizes, ncs):
-        off_k, e_k = offsets[a:a + nc], e[a:a + nc]
-        if quantum is None:
-            outs.append(bp_decode_condense(words, C, off_k, e_k, int(n)))
-        else:
-            outs.append(bp_decode_condense_f32(words, C, off_k, e_k,
-                                               quantum, int(n)))
-        a += nc
-    return outs
+    with span("mgard.bitplane"):
+        e = exponents.to(torch.int32)
+        offsets = _offsets(e)
+        outs = []
+        a = 0
+        for n, nc in zip(sizes, ncs):
+            off_k, e_k = offsets[a:a + nc], e[a:a + nc]
+            if quantum is None:
+                outs.append(bp_decode_condense(words, C, off_k, e_k, int(n)))
+            else:
+                outs.append(bp_decode_condense_f32(words, C, off_k, e_k,
+                                                   quantum, int(n)))
+            a += nc
+        return outs
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..hierarchy import DimLevel, Hierarchy
+from ..utils.log import span
 from . import extract_kernels as xk
 from . import lpk_kernels as lk
 from . import stencil_kernels as sk
@@ -350,24 +351,25 @@ def _correction(hier: Hierarchy, detail: torch.Tensor, l: int):
     ``restrict`` along each dim, then the Thomas solve of level l-1 along
     each dim (S1 on the card).  Decompose and recompose take the same
     branch, so both run the same arithmetic."""
-    dims = _level_dims(hier, l)
-    if not _use_matmul(hier, l):
-        B = detail
-        for d in dims:
-            B = mass_apply(B, hier.dims[d][l].h, d)
-            B = restrict(B, hier.dims[d][l], d)
-        for d in dims:
-            lev = hier.dims[d][l - 1]
-            B = mass_solve(B, lev.offdiag, lev.divisors, d)
-        return B
-    if _LPK and dims == [0, 1, 2] and lk.rm0_supported(hier, l, detail):
-        Y = lk.rm_dim0(hier, detail, l)
-        mats = _device_mats(hier, "_corr_fast_mats", l,
-                            lk.correction_matrices_fast(hier, l), Y)
-        return _apply_matrix_chain(Y, mats, dims)
-    mats = _device_mats(hier, "_corr_mats", l,
-                        _correction_matrices(hier, l), detail)
-    return _apply_matrix_chain(detail, mats, dims)
+    with span("mgard.correction"):
+        dims = _level_dims(hier, l)
+        if not _use_matmul(hier, l):
+            B = detail
+            for d in dims:
+                B = mass_apply(B, hier.dims[d][l].h, d)
+                B = restrict(B, hier.dims[d][l], d)
+            for d in dims:
+                lev = hier.dims[d][l - 1]
+                B = mass_solve(B, lev.offdiag, lev.divisors, d)
+            return B
+        if _LPK and dims == [0, 1, 2] and lk.rm0_supported(hier, l, detail):
+            Y = lk.rm_dim0(hier, detail, l)
+            mats = _device_mats(hier, "_corr_fast_mats", l,
+                                lk.correction_matrices_fast(hier, l), Y)
+            return _apply_matrix_chain(Y, mats, dims)
+        mats = _device_mats(hier, "_corr_mats", l,
+                            _correction_matrices(hier, l), detail)
+        return _apply_matrix_chain(detail, mats, dims)
 
 
 # ---------------------------------------------------------------------------
@@ -386,15 +388,17 @@ def decompose(hier: Hierarchy, v: torch.Tensor) -> List[torch.Tensor]:
                          f"{tuple(v.shape)}")
     pyramid: List[torch.Tensor] = [None] * (hier.L + 1)
     A = v
-    for l in range(hier.L, 0, -1):
-        with table_scope():     # the level's tables leave the card after it
-            C = _extract_old_all(hier, A, l)
-            if _GPK and sk.gpk_supported(hier, l, A):
-                detail = sk.gpk_detail(hier, A, l)
-            else:
-                detail = A - _prolong_all(hier, C, l)
-            pyramid[l] = detail
-            A = C + _correction(hier, detail, l)
+    with span("mgard.decompose"):
+        for l in range(hier.L, 0, -1):
+            # the level's tables leave the card after it
+            with span(f"mgard.level.{l}"), table_scope():
+                C = _extract_old_all(hier, A, l)
+                if _GPK and sk.gpk_supported(hier, l, A):
+                    detail = sk.gpk_detail(hier, A, l)
+                else:
+                    detail = A - _prolong_all(hier, C, l)
+                pyramid[l] = detail
+                A = C + _correction(hier, detail, l)
     pyramid[0] = A
     return pyramid
 
@@ -410,14 +414,15 @@ def recompose_to_level(hier: Hierarchy, pyramid: Sequence[torch.Tensor],
     """Recompose up to level ``lmax``: the dense level-``lmax`` grid
     (shape ``hier.shapes[lmax]``)."""
     A = pyramid[0]
-    for l in range(1, lmax + 1):
-        detail = pyramid[l]
-        with table_scope():
-            C = A - _correction(hier, detail, l)
-            if _GPK and sk.gpk_supported(hier, l, detail):
-                A = sk.gpk_prolong_add(hier, C, detail, l)
-            else:
-                A = _prolong_all(hier, C, l) + detail
+    with span("mgard.recompose"):
+        for l in range(1, lmax + 1):
+            detail = pyramid[l]
+            with span(f"mgard.level.{l}"), table_scope():
+                C = A - _correction(hier, detail, l)
+                if _GPK and sk.gpk_supported(hier, l, detail):
+                    A = sk.gpk_prolong_add(hier, C, detail, l)
+                else:
+                    A = _prolong_all(hier, C, l) + detail
     return A
 
 

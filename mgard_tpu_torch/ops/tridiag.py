@@ -45,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import log
 from . import _build
 
 __all__ = ["mass_apply", "mass_solve", "mass_solve_plain", "solve_tables",
@@ -179,7 +180,9 @@ def _host_kept(arr: np.ndarray, key: tuple, build):
 def _upload(host: torch.Tensor, device) -> torch.Tensor:
     """A host table's copy on ``device``, queued on its current stream
     without waiting; an event recorded after it tells when the host
-    pages are free again."""
+    pages are free again.  Its bytes go to the counter ``tables.bytes``
+    (``utils/log.count``)."""
+    log.count("tables.bytes", host.numel() * host.element_size())
     out = host.to(device, non_blocking=True)
     if getattr(host, "_mgard_locked", 0):
         host._mgard_copied = torch.cuda.Event()
