@@ -265,12 +265,16 @@ seconds of each of their steps, as "-- step <name>: <s> s"):
                  s = 0's, and QoI's), held against its plain version,
                  with its route, blocks an SM and walks, the first solve
                  of each level timed in TURNS turns; for (a)
-                 and (b) the encode's peak device memory and the tables
-                 within it against the planner's factor, no table left
+                 and (b) the encode's peak device memory and the scoped
+                 tables within it against the planner's factor (the
+                 resident tables logged beside it), no scoped table left
                  on the card by a call, the ratio and error those before
                  the tables' memory repair, for (a) the top level's
                  tables copied from the host against built on the card,
-                 and
+                 a warm encode and decode that copy no table and count
+                 two calls on resident tables, the resident bytes equal
+                 to transform.table_bytes, none left after
+                 release_cache, and
                  K1-K6 bit for bit against their plain versions at their
                  own shapes, K3's stream the container's (K2 over (a)'s
                  30 segments in one launch); (c) (8192, 8192) at s = 0,
@@ -3224,9 +3228,12 @@ def bits_equal(a, b) -> bool:
 
 
 def solve_residual(b, x, lev, axis) -> float:
-    """max|M x - b| / max|b| in float64, M the level's mass matrix."""
+    """max|M x - b| / max|b| in float64, M the level's mass matrix (its
+    float64 spacings scoped to this check, also inside a call on resident
+    tables)."""
     from mgard_tpu_torch.ops import tridiag
-    r = tridiag.mass_apply(x.double(), lev.h, axis)
+    with tridiag.table_scope(resident=False):
+        r = tridiag.mass_apply(x.double(), lev.h, axis)
     r -= b.double()
     return float(r.abs().max()) / float(b.abs().max())
 
@@ -3335,6 +3342,9 @@ def table_costs(hier):
         torch.cuda.synchronize()
         return got
 
+    # the host sides page-locked once, as the scoped path keeps them (the
+    # resident path that the round trips took makes none)
+    copied()
     times = {}
     for label, fn in (("copied", copied), ("built", built)):
         torch.cuda.synchronize()
@@ -3353,13 +3363,17 @@ def table_costs(hier):
 
 
 def unmoved(label, ratio, err, before, kept):
-    """After a round trip of (a) or (b): no table left on the card by it
-    (``kept``: the bytes of tables before it, those of earlier checks'
-    own calls), and the ratio and max error those of the transform before
-    its memory repair (the repair moves no bit)."""
+    """After a round trip of (a) or (b): no scoped table left on the card
+    by it (``kept``: the bytes of scoped tables before it, those of
+    earlier checks' own calls; the resident ones, kept for the life of
+    the hierarchy, are logged apart), and the ratio and max error those
+    of the transform before its memory repair (the repair moves no bit,
+    nor does keeping the tables resident)."""
+    from mgard_tpu_torch.ops import tridiag
     tables = device_tables_bytes() - kept
-    log(f"{label}: tables the round trip left on the card {tables} "
-        f"bytes; ratio {ratio!r} and max error {err!r} against "
+    log(f"{label}: scoped tables the round trip left on the card {tables} "
+        f"bytes, resident tables {tridiag.resident_bytes()} bytes; ratio "
+        f"{ratio!r} and max error {err!r} against "
         f"{before[0]!r} and {before[1]!r} before the repair")
     if tables or (ratio, err) != before:
         raise AssertionError(f"{label}: {tables} bytes of tables kept, or "
@@ -3375,11 +3389,12 @@ def expect_launches(label, counts, want):
 
 
 def device_tables_bytes() -> int:
-    """Bytes of the tables that the operators hold on the card
+    """Bytes of the scoped tables that the operators hold on the card
     (``tridiag.cached_tensor`` and S1's coefficients): those of the open
     table scopes (``tridiag.table_scope``: one for each encode and
-    decode, one for each level inside it); no table outlives its
-    scope."""
+    decode, one for each level inside it); no such table outlives its
+    scope.  The resident ones (a hierarchy admitted to the card) are
+    ``tridiag.resident_bytes()``, counted apart."""
     import torch
     from mgard_tpu_torch.ops import tridiag
     total = 0
@@ -3392,8 +3407,9 @@ def device_tables_bytes() -> int:
 
 
 class TableProbe:
-    """The most bytes of tables the card held at once while the probe was
-    open (:func:`device_tables_bytes` after each table is made)."""
+    """The most bytes of scoped tables the card held at once while the
+    probe was open (:func:`device_tables_bytes` after each scoped table
+    is made; a resident table is not made through ``tridiag._kept``)."""
 
     def __enter__(self):
         from mgard_tpu_torch.ops import tridiag
@@ -3415,32 +3431,39 @@ class TableProbe:
 
 def encode_peak(label, comp, v, bound):
     """The encode's peak device memory over the input's bytes (the input
-    counted, as in the planner's estimate), the most bytes of tables
-    held within it, and the tables it left on the card, which must be
-    none; the peak must be within the planner's factor for this shape
-    and configuration (``api.footprint_per_byte``; the peak is logged
-    first).  Returns the peak's factor."""
+    counted, as in the planner's estimate), the most bytes of scoped
+    tables held within it, and the scoped tables it left on the card,
+    which must be none; the peak must be within the planner's factor for
+    this shape and configuration (``api.footprint_per_byte``; the peak is
+    logged first).  Resident tables (``tridiag.resident_bytes``) are
+    logged beside it: those the encode copied count in its peak, those
+    held before it do not, as the admission counts them beside the
+    planner's factor.  Returns the peak's factor."""
     import torch
     from mgard_tpu_torch import api
+    from mgard_tpu_torch.ops import tridiag
 
     nbytes = v.numel() * v.element_size()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     kept = device_tables_bytes()    # those of earlier checks' own calls
+    resident = tridiag.resident_bytes()
     torch.cuda.reset_peak_memory_stats()
     with TableProbe() as tables:
         comp.encode_device(v, bound)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - before + nbytes
     after = device_tables_bytes() - kept
+    made = tridiag.resident_bytes() - resident
     planned = api.footprint_per_byte(tuple(v.shape), comp.dtype,
                                      comp.config)
     log(f"{label}: encode peak {peak} bytes = {peak / nbytes:.4f}x the "
-        f"input's {nbytes} bytes, tables within it at most "
+        f"input's {nbytes} bytes, scoped tables within it at most "
         f"{tables.most - kept} bytes = {(tables.most - kept) / nbytes:.4f}x; "
-        f"tables it "
-        f"left on the card {after} bytes; the planner counts "
-        f"{planned:.4f}x")
+        f"scoped tables it left on the card {after} bytes; resident "
+        f"tables {resident} bytes before it ({resident / nbytes:.4f}x, not "
+        f"in the peak), {made} bytes made by it ({made / nbytes:.4f}x, in "
+        f"the peak); the planner counts {planned:.4f}x")
     if after:
         raise AssertionError(f"{label}: {after} bytes of tables stay on "
                              "the card after the encode")
@@ -3812,10 +3835,53 @@ def long_series(prebuilt):
     check_block_kernels("long series kernels", api.compressor_for(header), v,
                         header.tolerance, sections, stencil=False)
     lap("(a) kernels")
-    del v
+    resident_tables("long series", comp, v, header, sections)
+    del v, comp, hier, lev, probe
     mt.release_cache()
     torch.cuda.empty_cache()
+    resident = tridiag.resident_bytes()
+    log(f"long series: resident tables after release_cache {resident} "
+        f"bytes")
+    if resident:
+        raise AssertionError(f"long series: {resident} bytes of resident "
+                             "tables outlive release_cache")
     return counts
+
+
+def resident_tables(label, comp, v, header, sections):
+    """The resident tables of a warm hierarchy: one encode and one decode
+    copy no table (the counter ``tables.bytes`` reads 0) and each counts
+    one call on resident tables (``tables.resident``); every table its
+    per-dim levels copy is on the card once, as ``transform.table_bytes``
+    reckons them (S1's too)."""
+    import mgard_tpu_torch as mt
+    from mgard_tpu_torch.ops import transform, tridiag
+    from mgard_tpu_torch.utils import log as counters
+
+    exps, words = comp.stream_tensors(header, sections)
+    counters.reset_counts()
+    comp.encode_device(v, header.tolerance)
+    comp.decode_device(exps, words, header.tolerance,
+                       mt.Lossless(header.lossless))
+    got = counters.counts()
+    counters.reset_counts()
+    # this hierarchy's own: the entries keyed by its levels' arrays
+    own = {id(a) for dims in comp.hier.dims for lev in dims
+           for a in vars(lev).values() if isinstance(a, np.ndarray)}
+    with tridiag._RESIDENT_LOCK:
+        hits = [hit for key, hit in tridiag._RESIDENT.items()
+                if key[0] in own]
+    resident = sum(t.numel() * t.element_size() for hit in hits
+                   for t in tridiag._tensors(hit.tables))
+    want = transform.table_bytes(comp.hier, v.element_size())
+    log(f"{label}: an encode and a decode on warm tables count {got}; "
+        f"resident tables {resident} bytes, reckoned {want} bytes")
+    if got.get("tables.bytes", 0) or got.get("tables.resident") != 2:
+        raise AssertionError(f"{label}: counters {got}, expected no table "
+                             "bytes and two calls on resident tables")
+    if resident != want:
+        raise AssertionError(f"{label}: {resident} bytes of resident "
+                             f"tables, reckoned {want}")
 
 
 def long_field():

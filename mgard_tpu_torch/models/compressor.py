@@ -51,9 +51,11 @@ stage runs, so that a machine without it raises ``ModuleNotFoundError``
 there and nowhere else; no stage ever falls back to another.
 
 Tables that the operators copy to the card (``tridiag.cached_tensor``,
-S1's coefficients) live for one encode or decode
-(``tridiag.table_scope``), so that none stays on the card after the
-call.
+S1's coefficients) stay there for the life of the hierarchy where they
+fit the card beside a call's planned peak (:meth:`Compressor._resident`:
+copied once, then read by every call); elsewhere they live for one
+encode or decode (``tridiag.table_scope``), so that none stays on the
+card after the call.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ import torch
 from ..config import Config, Decomposition, ErrorMode, Layout, Lossless
 from ..hierarchy import Hierarchy
 from ..io import format as fmt
-from ..ops import bitplane, transform
+from ..ops import bitplane, transform, tridiag
 from ..ops import transform_hybrid as th
 from ..ops import transform_singledim as sd
 from ..ops.quantize import (TORCH_DTYPE, dequantize_blocks,
@@ -79,7 +81,7 @@ from ..ops.quantize import (TORCH_DTYPE, dequantize_blocks,
                             supremum_quantum)
 from ..ops.tridiag import along_axis, table_scope
 from ..utils import debug
-from ..utils.log import span
+from ..utils.log import count, span
 
 _F64 = np.dtype(np.float64)
 # Small domains get per-group exponents (compressor.py:79-86) ...
@@ -192,6 +194,7 @@ class Compressor:
         if wide:
             lossless = _TO_CHUNKED.get(lossless, lossless)
         self.lossless = lossless
+        self._tables_resident = None    # decided at the first call
         self._seg_capable = (
             self.config.decomposition == Decomposition.MULTIDIM
             and self.config.layout == Layout.PYRAMID_SEG
@@ -362,11 +365,50 @@ class Compressor:
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
+    def _table_scope(self):
+        """The table scope of one encode or decode: resident where this
+        hierarchy's tables are admitted to the card (:meth:`_resident`;
+        each such call adds one to the counter ``tables.resident``), else
+        the call's own."""
+        resident = self._resident()
+        if resident:
+            count("tables.resident")
+        return table_scope(resident=resident)
+
+    def _resident(self) -> bool:
+        """Whether the tables that the transform copies to the card stay
+        there for the life of the hierarchy, decided once per hierarchy
+        (the HYBRID decomposition's coarse one), dtype and device, at the
+        first call: where their bytes (``transform.table_bytes``), with
+        a call's planned peak (``api.footprint_per_byte`` of the input's
+        bytes), fit the memory the card has free, as the planner reads it.
+        A hierarchy with no such tables never reads it."""
+        if self._tables_resident is not None:
+            return self._tables_resident
+        hier = self._hybrid_hc if self._hybrid_k else self.hier
+        every = self.config.decomposition == Decomposition.SINGLEDIM
+        key = (self.dtype.str, str(self.device), every)
+        cache = hier.__dict__.setdefault("_tables_resident", {})
+        hit = cache.get(key)
+        if hit is None:
+            from .. import api
+            tables = transform.table_bytes(hier, self.dtype.itemsize, every)
+            hit = bool(tables) and tridiag._on_card(self.device)
+            if hit:
+                nbytes = self.hier.ndof() * self.dtype.itemsize
+                peak = api.footprint_per_byte(self.hier.shape, self.dtype,
+                                              self.config) * nbytes
+                hit = tables + peak <= api._device_memory_budget(
+                    self.device)
+            cache[key] = hit
+        self._tables_resident = hit
+        return hit
+
     def encode_device(self, v: torch.Tensor, abs_tol: float):
         """decompose + quantize + encode on the device: ``(exponents,
         words, count, status)`` tensors, not yet read back; for a host
         lossless ``(flat integer stream, status)``."""
-        with span("mgard.encode"), table_scope():
+        with span("mgard.encode"), self._table_scope():
             if self.lossless in _HOST_LOSSLESS:
                 return self._quantized_flat(v, abs_tol)
             return self._encode_device(v, abs_tol)
@@ -396,7 +438,7 @@ class Compressor:
         """Decode + dequantize + recompose on the device; ``lossless`` is
         the container's (default: this compressor's)."""
         lossless = self.lossless if lossless is None else lossless
-        with span("mgard.decode"), table_scope():
+        with span("mgard.decode"), self._table_scope():
             return self._decode_device(exponents, words, abs_tol, lossless)
 
     def _decode_device(self, exponents, words, abs_tol, lossless):
@@ -429,7 +471,7 @@ class Compressor:
         bitplane words also for a host lossless (its stages run after
         them)."""
         def encode(v: torch.Tensor, tol) -> Tuple[torch.Tensor, ...]:
-            with table_scope():
+            with self._table_scope():
                 return self._encode_device(v, float(tol))
         return encode
 
@@ -631,7 +673,7 @@ class Compressor:
             raise ValueError("container shape mismatch")
         flat = torch.from_numpy(self._host_lossless_decode(
             sections[0], lossless)).to(self.device)
-        with table_scope():
+        with self._table_scope():
             return self._flat_to_array(flat, header.tolerance)
 
     def decompress(self, buf: bytes) -> np.ndarray:

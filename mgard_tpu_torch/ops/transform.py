@@ -104,6 +104,36 @@ def _use_matmul(hier: Hierarchy, l: int) -> bool:
         hier.dims[d][l].n <= _MATMUL_MAX_N for d in _level_dims(hier, l))
 
 
+def table_bytes(hier: Hierarchy, itemsize: int, every_level=False) -> int:
+    """Bytes of the host tables that one call on ``hier`` with
+    ``itemsize``-byte data copies to a card (``tridiag.cached_tensor``
+    and S1's coefficients): at each per-dim level (every level with
+    ``every_level``, as the SINGLEDIM decomposition runs them), each
+    dim's spacings ``h`` (``mass_apply``), its ``new_ratio`` (``prolong``
+    and ``restrict``; on a general dim the lerp's weights and its two
+    int64 parent indices instead) and S1's ``off`` and ``div`` of the
+    level below; at any level, the int64 parent and new positions of a
+    general dim (the gathers and scatters)."""
+    total = 0
+    for l in range(1, hier.L + 1):
+        per_dim = every_level or not _use_matmul(hier, l)
+        for d in _level_dims(hier, l):
+            lev, clev = hier.dims[d][l], hier.dims[d][l - 1]
+            general = lev.coarse_pos is not None \
+                and not lev.coarse_is_stride2 and lev.front_nc is None
+            if general:
+                total += 8 * (len(lev.coarse_pos) + len(lev.new_pos))
+            if not per_dim:
+                continue
+            total += itemsize * (len(lev.h) + len(clev.offdiag)
+                                 + len(clev.divisors))
+            if general:
+                total += (itemsize + 16) * lev.n
+            elif lev.coarse_pos is not None:
+                total += itemsize * len(lev.new_ratio)
+    return total
+
+
 def _mass_matrix_np(h: np.ndarray) -> np.ndarray:
     n = len(h) + 1
     M = np.zeros((n, n), dtype=np.float64)

@@ -23,15 +23,20 @@ wherever a level does not take the dense matrices (a dim over
 :func:`mass_apply` stays plain torch, as it is plain XLA in JAX.
 
 Host tables that the operators read (spacings, ratios, indices, the
-solve's coefficients) are converted to the data's type on the host once,
-into page-locked memory when a card is present, and kept there as long
-as the host array they come from lives; they are copied to a card as
-the operators need them (:func:`cached_tensor`).  Inside a
-:func:`table_scope` a table is copied once and dropped when the innermost
-open scope closes: the compressor opens one for each encode and decode,
-and the transform one for each level, so that no such table stays on the
-card after the call and at most one level's tables are there at a time.
-Outside any scope a table is copied for each use.
+solve's coefficients) are converted to the data's type on the host, and
+copied to a card as the operators need them (:func:`cached_tensor`), in
+one of two lifetimes that the innermost open :func:`table_scope` sets.
+In a scoped one the host side is made once, into page-locked memory,
+and kept as long as the host array it comes from lives; a table is
+copied once and dropped when the innermost open scope closes: the
+compressor opens one for each encode and decode, and the transform one
+for each level, so that no such table stays on the card after the call
+and at most one level's tables are there at a time.  In a resident one
+(the compressor's, where a hierarchy's tables fit the card beside a
+call's planned peak) a table is copied once from a host side made for
+that copy alone and kept on the card, for every later call, as long as
+its host array lives (:func:`resident_bytes`).  Outside any scope a table
+is copied for each use.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import math
 import mmap
+import threading
 import weakref
 from typing import NamedTuple
 
@@ -50,7 +56,8 @@ from . import _build
 
 __all__ = ["mass_apply", "mass_solve", "mass_solve_plain", "solve_tables",
            "solve_geometry", "solve_overlap", "SolveGeometry",
-           "cached_tensor", "table_scope", "pad_fold", "along_axis"]
+           "cached_tensor", "table_scope", "resident_bytes", "locked_bytes",
+           "pad_fold", "along_axis"]
 
 # S1's tiles (csrc/tridiag.cuh).  float32: 256 threads a block; shared
 # memory aimed at three blocks an SM, else two, at most what one block
@@ -92,12 +99,24 @@ _ROUTES = {"runs": 0, "lines": 1, "short": 2}
 _SCOPES = []
 
 
+class _Scope(dict):
+    """An open :func:`table_scope`; ``resident``: whether the tables made
+    in it are kept in the resident store instead."""
+    resident = False
+
+
 @contextlib.contextmanager
-def table_scope():
+def table_scope(resident=None):
     """Tables that :func:`cached_tensor` and :func:`mass_solve` copy to a
     card while this scope is the innermost open one are copied once and
-    dropped when it closes (those of an enclosing scope stay)."""
-    _SCOPES.append({})
+    dropped when it closes (those of an enclosing scope stay); in a
+    ``resident`` scope they are kept on the card as long as their host
+    arrays live.  ``resident`` defaults to the enclosing scope's (False
+    outside any)."""
+    scope = _Scope()
+    scope.resident = (_SCOPES[-1].resident if _SCOPES else False) \
+        if resident is None else bool(resident)
+    _SCOPES.append(scope)
     try:
         yield
     finally:
@@ -119,6 +138,15 @@ def _kept(arr: np.ndarray, key: tuple, build):
     hit = _SCOPES[-1][key] = build()
     _SCOPES[-1][("array",) + key] = arr
     return hit
+
+
+def _each(fn, hit):
+    """``fn`` of a table, or of each table of a tuple."""
+    return tuple(map(fn, hit)) if isinstance(hit, tuple) else fn(hit)
+
+
+def _tensors(hit) -> tuple:
+    return hit if isinstance(hit, tuple) else (hit,)
 
 
 _HOST = {}
@@ -145,8 +173,7 @@ def _locked(t: torch.Tensor) -> torch.Tensor:
 
 
 def _drop_host(key) -> None:
-    hit = _HOST.pop(key, None)
-    for t in hit if isinstance(hit, tuple) else (hit,):
+    for t in _tensors(_HOST.pop(key, ())):
         if getattr(t, "_mgard_locked", 0):
             copied = getattr(t, "_mgard_copied", None)
             if copied is not None:
@@ -157,7 +184,7 @@ def _drop_host(key) -> None:
 def locked_bytes() -> int:
     """Bytes of host memory that the host tables hold page-locked."""
     return sum(getattr(t, "_mgard_locked", 0) for hit in _HOST.values()
-               for t in (hit if isinstance(hit, tuple) else (hit,)))
+               for t in _tensors(hit))
 
 
 def _host_kept(arr: np.ndarray, key: tuple, build):
@@ -169,19 +196,16 @@ def _host_kept(arr: np.ndarray, key: tuple, build):
     key = (id(arr),) + key
     hit = _HOST.get(key)
     if hit is None:
-        hit = build()
-        hit = tuple(map(_locked, hit)) if isinstance(hit, tuple) \
-            else _locked(hit)
-        _HOST[key] = hit
+        hit = _HOST[key] = _each(_locked, build())
         weakref.finalize(arr, _drop_host, key)
     return hit
 
 
 def _upload(host: torch.Tensor, device) -> torch.Tensor:
-    """A host table's copy on ``device``, queued on its current stream
-    without waiting; an event recorded after it tells when the host
-    pages are free again.  Its bytes go to the counter ``tables.bytes``
-    (``utils/log.count``)."""
+    """A host table's copy on ``device``, queued on its current stream;
+    from a page-locked host side without waiting, with an event recorded
+    after it that tells when the host pages are free again.  Its bytes go
+    to the counter ``tables.bytes`` (``utils/log.count``)."""
     log.count("tables.bytes", host.numel() * host.element_size())
     out = host.to(device, non_blocking=True)
     if getattr(host, "_mgard_locked", 0):
@@ -190,21 +214,94 @@ def _upload(host: torch.Tensor, device) -> torch.Tensor:
     return out
 
 
+class _Resident:
+    """A table kept on the card: its tensors, the event recorded after
+    their upload (None off CUDA), and the streams known to wait on it."""
+
+    def __init__(self, tables, event, streams):
+        self.tables, self.event, self.streams = tables, event, streams
+
+
+# The resident store, keyed as _HOST is (host array, dtype) and by the
+# device; guarded as utils/log guards its counters.  Reentrant: an entry
+# may be dropped by a collection that runs while the lock is held.
+_RESIDENT = {}
+_RESIDENT_LOCK = threading.RLock()
+
+
+def _drop_resident(key) -> None:
+    with _RESIDENT_LOCK:
+        _RESIDENT.pop(key, None)
+
+
+def resident_bytes() -> int:
+    """Bytes of device memory that the resident tables hold."""
+    with _RESIDENT_LOCK:
+        hits = list(_RESIDENT.values())
+    return sum(t.numel() * t.element_size() for hit in hits
+               for t in _tensors(hit.tables))
+
+
+def _resident(arr: np.ndarray, key: tuple, build, device):
+    """The resident copy on ``device`` of the host table ``build()``,
+    uploaded once per ``key`` and host array ``arr`` from a host side
+    made for that copy alone (not page-locked) and dropped with the
+    array.  A CUDA stream other than the upload's waits on the event
+    recorded after it before its first use."""
+    key = (id(arr),) + key
+    with _RESIDENT_LOCK:
+        hit = _RESIDENT.get(key)
+    if hit is None:
+        tables = _each(lambda t: _upload(t, device), build())
+        event, streams = None, set()
+        if torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            event = torch.cuda.Event()
+            event.record(stream)
+            streams.add(stream.cuda_stream)
+        with _RESIDENT_LOCK:
+            hit = _RESIDENT.get(key)
+            if hit is None:
+                hit = _RESIDENT[key] = _Resident(tables, event, streams)
+                weakref.finalize(arr, _drop_resident, key)
+    if hit.event is not None:
+        stream = torch.cuda.current_stream(device)
+        if stream.cuda_stream not in hit.streams:
+            stream.wait_event(hit.event)
+            for t in _tensors(hit.tables):
+                t.record_stream(stream)
+            hit.streams.add(stream.cuda_stream)
+    return hit.tables
+
+
 def _on_card(device) -> bool:
     return torch.device(device).type != "cpu"
+
+
+def _card_table(arr: np.ndarray, key: tuple, build, device):
+    """The copy on ``device`` of the host table ``build()`` (a CPU tensor
+    or a tuple of them) of ``arr``, in the lifetime that the innermost
+    open :func:`table_scope` sets: resident (:func:`_resident`), or
+    copied from a page-locked host side (:func:`_host_kept`) as
+    :func:`_kept` says."""
+    key = key + (str(device),)
+    if _SCOPES and _SCOPES[-1].resident:
+        return _resident(arr, key, build, device)
+    host = _host_kept(arr, key[:-1], build)
+    return _kept(arr, key, lambda: _each(lambda t: _upload(t, device),
+                                         host))
 
 
 def cached_tensor(arr: np.ndarray, dtype: torch.dtype, device
                   ) -> torch.Tensor:
     """``torch.as_tensor(arr, dtype, device)``; on a card copied from a
-    host tensor converted once per array and type (:func:`_host_kept`),
-    as :func:`_kept` says.  A CPU tensor may share the array's memory, so
-    it is made anew each time."""
+    host tensor converted once per array and type, as
+    :func:`_card_table` says.  A CPU tensor may share the array's memory,
+    so it is made anew each time."""
     if not _on_card(device):
         return torch.as_tensor(arr, dtype=dtype, device=device)
-    host = _host_kept(arr, (dtype,), lambda: torch.as_tensor(arr,
-                                                             dtype=dtype))
-    return _kept(arr, (dtype, str(device)), lambda: _upload(host, device))
+    return _card_table(arr, (dtype,), lambda: torch.as_tensor(
+        arr, dtype=dtype), device)
 
 
 def along_axis(vec, like: torch.Tensor, axis: int) -> torch.Tensor:
@@ -285,13 +382,11 @@ def solve_tables(offdiag: np.ndarray, divisors: np.ndarray, dtype):
 
 def _device_tables(offdiag, divisors, dtype, device):
     """S1's tables ``(off, div)`` in ``dtype`` (it divides ``w`` itself),
-    on ``device``, kept as :func:`_kept` says, copied from host tensors
-    made once per level."""
-    host = _host_kept(divisors, ("solve", dtype), lambda: tuple(
+    on ``device``, kept as :func:`_card_table` says, copied from host
+    tensors made once per level."""
+    return _card_table(divisors, ("solve", dtype), lambda: tuple(
         torch.from_numpy(a) for a in solve_tables(offdiag, divisors,
-                                                  dtype)[1:]))
-    return _kept(divisors, ("solve", dtype, str(device)), lambda: tuple(
-        _upload(t, device) for t in host))
+                                                  dtype)[1:]), device)
 
 
 class SolveGeometry(NamedTuple):

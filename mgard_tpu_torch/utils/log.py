@@ -17,7 +17,9 @@ The encode and decode name their stages (``mgard.encode``,
 ``mgard.decompose``, ``mgard.level.<l>``, ``mgard.correction``,
 ``mgard.bitplane``; ``mgard.decode``, ``mgard.recompose``).  Counters
 are always on: ``tables.bytes`` holds the bytes of the host tables that
-``ops/tridiag._upload`` has queued to a card.
+``ops/tridiag._upload`` has queued to a card, ``tables.resident`` the
+encodes and decodes that ran on tables kept on the card
+(``models/compressor.Compressor._table_scope``).
 """
 
 from __future__ import annotations

@@ -11,6 +11,10 @@ recurrence of the hierarchy, and S1's plain solve.
   (checked against a numpy replica of them); XLA's CPU backend contracts
   ``d - w * carry`` into one fused multiply-add, so against the JAX
   function itself it agrees within a few float ulps of ``max|x|``.
+* The per-dim form's tables, with a card faked: kept on the card for the
+  life of the hierarchy where they fit beside a call's planned peak (bit
+  for bit the streams and decodes of tables scoped to each call), else
+  scoped per call and per level; freed with the hierarchy.
 * S1's tiled schedule is emulated and held against the plain version
   in ``test_torch_s1_tiled.py``.
 * End to end (``test_torch_longdims_e2e.py``), each package decodes the
@@ -405,13 +409,34 @@ def test_in_place_operators_bit_for_bit(axis, dtype):
                                want.contiguous().view(view))
 
 
-def test_per_dim_tables_leave_the_card(monkeypatch):
-    """With a card faked (the CPU takes the card's table path, a copy
-    standing in for each upload), each encode and decode of a long-dim
-    array copies its tables in table scopes, one per level, and leaves
-    none after it; outside a scope a table is copied for each use."""
+def _fake_card(monkeypatch, admitted=True):
+    """The CPU takes the card's table path, a copy standing in for each
+    upload (their element counts in the list returned); where not
+    ``admitted``, the card's free memory reads 1 KiB, so that no
+    hierarchy's tables are kept on it.  The cached hierarchies go first,
+    so that each test decides afresh."""
+    mt.release_cache()
     monkeypatch.setattr(ttd, "_on_card", lambda device: True)
-    monkeypatch.setattr(ttd, "_upload", lambda host, device: host.clone())
+    uploads = []
+    monkeypatch.setattr(ttd, "_upload", lambda host, device: uploads.append(
+        host.numel()) or host.clone())
+    if not admitted:
+        monkeypatch.setattr(api, "_device_memory_budget",
+                            lambda device: 1 << 10)
+    return uploads
+
+
+@pytest.mark.parametrize("admitted", [True, False],
+                         ids=["resident", "not_admitted"])
+def test_per_dim_tables_leave_the_card(monkeypatch, admitted):
+    """With a card faked, the tables of a long-dim array whose hierarchy
+    fits the card beside a call's planned peak are copied once and kept
+    there (no scope holds them; a second round trip copies nothing).
+    Where they do not fit, each encode and decode copies its tables in
+    table scopes, one per level, and leaves none after it.  Either way,
+    outside a scope a table is copied for each use, and a scope keeps
+    what it made."""
+    uploads = _fake_card(monkeypatch, admitted)
     made = []
     kept = ttd._kept
     monkeypatch.setattr(ttd, "_kept", lambda arr, key, build: made.append(
@@ -419,13 +444,19 @@ def test_per_dim_tables_leave_the_card(monkeypatch):
     comp = mt.get_compressor((5000,), np.float32, device="cpu")
     v = _field((5000,))
     out = comp.encode_device(torch.from_numpy(v), 1e-3)
-    assert made and min(made) == 2          # call scope + level scope
-    assert not ttd._SCOPES
-    n = len(made)
+    assert uploads and not ttd._SCOPES
+    if admitted:
+        assert not made                     # no scope held a table
+        assert ttd.resident_bytes() == 4 * sum(uploads)
+    else:
+        assert made and min(made) == 2      # call scope + level scope
+        assert ttd.resident_bytes() == 0
+    n = len(uploads)
     comp.sections_from_outputs(*out)
     buf = comp.compress(v, 1e-3)
     assert np.abs(mt.decompress(buf, device="cpu") - v).max() <= 1e-3
-    assert len(made) > n and not ttd._SCOPES
+    assert not ttd._SCOPES
+    assert len(uploads) == n if admitted else len(uploads) > 2 * n
     lev = comp.hier.dims[0][comp.hier.L]
     t = ttd.cached_tensor(lev.h, torch.float32, "cpu")
     again = ttd.cached_tensor(lev.h, torch.float32, "cpu")
@@ -440,6 +471,142 @@ def test_per_dim_tables_leave_the_card(monkeypatch):
         # the table and its host array, in the scope that made it
         assert len(ttd._SCOPES) == 1 and len(ttd._SCOPES[0]) == 2
     assert not ttd._SCOPES and ttd.locked_bytes() == 0
+    del comp
+    mt.release_cache()
+
+
+def test_resident_scope_is_inherited(monkeypatch):
+    """A scope opened inside a resident one is resident too, unless it
+    says otherwise; a resident table is served from the store, not from
+    a scope, and the store drops it with its host array."""
+    uploads = _fake_card(monkeypatch)
+    h = np.linspace(0.0, 1.0, 7)
+    with ttd.table_scope(resident=True):
+        t = ttd.cached_tensor(h, torch.float32, "cpu")
+        with ttd.table_scope():
+            assert ttd._SCOPES[-1].resident
+            assert ttd.cached_tensor(h, torch.float32, "cpu") is t
+            with ttd.table_scope(resident=False):
+                u = ttd.cached_tensor(h, torch.float32, "cpu")
+                assert u is not t and torch.equal(u, t)
+        assert not any(ttd._SCOPES[0].values())
+    assert not ttd._SCOPES and len(uploads) == 2
+    assert ttd.resident_bytes() == 4 * 7
+    del h
+    assert ttd.resident_bytes() == 0 and not ttd._RESIDENT
+
+
+def test_release_cache_empties_the_resident_store(monkeypatch):
+    """``mt.release_cache()`` drops the hierarchy, and with it every
+    resident table: the store is empty and ``resident_bytes`` reads 0.
+    Before, the resident bytes are those of the tables the reckoning
+    (``transform.table_bytes``) counts, less S1's, which the CPU's plain
+    solve does not copy."""
+    _fake_card(monkeypatch)
+    comp = mt.get_compressor((9, 4200), np.float32, device="cpu")
+    v = torch.from_numpy(_field((9, 4200)))
+    out = comp.encode_device(v, 1e-3)
+    comp.sections_from_outputs(*out)
+    hier = comp.hier
+    solve = sum(4 * (len(hier.dims[d][l - 1].offdiag)
+                     + len(hier.dims[d][l - 1].divisors))
+                for l in range(1, hier.L + 1) if not tt._use_matmul(hier, l)
+                for d in tt._level_dims(hier, l))
+    assert ttd.resident_bytes() == tt.table_bytes(hier, 4) - solve > 0
+    del comp, hier, out
+    mt.release_cache()
+    assert ttd.resident_bytes() == 0 and not ttd._RESIDENT
+
+
+def test_resident_store_under_threads(monkeypatch):
+    """Threads (more than the cores) that ask the resident store for the
+    same tables at once all get the one entry kept for each, and the
+    store holds one entry a table."""
+    import threading
+    uploads = _fake_card(monkeypatch)
+    arrays = [np.arange(n, dtype=np.float64) for n in range(2, 10)]
+    got, errors = [], []
+
+    def ask():
+        try:
+            for _ in range(50):
+                got.append([ttd._resident(a, (torch.float32, "cpu"),
+                                          lambda a=a: torch.as_tensor(
+                                              a, dtype=torch.float32),
+                                          "cpu") for a in arrays])
+        except Exception as exc:    # reported below, in the main thread
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=ask)
+                   for _ in range(4 * (os.cpu_count() or 1))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(got) == 50 * len(threads)
+    kept = [ttd._RESIDENT[(id(a), torch.float32, "cpu")].tables
+            for a in arrays]
+    assert all(all(x is y for x, y in zip(row, kept)) for row in got)
+    assert len(ttd._RESIDENT) == len(arrays) and len(uploads) >= len(arrays)
+    del arrays, kept, got
+    assert not ttd._RESIDENT
+
+
+@pytest.mark.parametrize("shape", [(5000,), (9, 4200)])
+def test_resident_tables_bit_equal_to_scoped(monkeypatch, shape):
+    """The streams and decodes of a long-dim array on resident tables
+    (the first call, which copies them, and a second, which reads them)
+    are bit for bit those on tables scoped to each call."""
+    v = torch.from_numpy(_field(shape, seed=3))
+
+    def calls():
+        comp = mt.get_compressor(shape, np.float32, device="cpu")
+        got = []
+        for _ in range(2):
+            exps, words, count, status = comp.encode_device(v, 1e-3)
+            words = words[:int(count)]
+            got += [exps, words, status,
+                    comp.decode_device(exps, words, 1e-3).view(torch.int32)]
+        return got
+
+    _fake_card(monkeypatch)
+    resident = calls()
+    assert ttd.resident_bytes() > 0
+    monkeypatch.undo()
+    _fake_card(monkeypatch, admitted=False)
+    scoped = calls()
+    assert ttd.resident_bytes() == 0
+    for a, b in zip(resident, scoped):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    mt.release_cache()
+
+
+def test_no_tables_no_memory_reading(monkeypatch):
+    """A hierarchy whose levels all take the dense matrices copies no
+    table and never reads the card's free memory; its calls are not
+    counted as resident."""
+    _fake_card(monkeypatch)
+
+    def refuse(device):
+        raise AssertionError("free memory read for a hierarchy without "
+                             "tables")
+    monkeypatch.setattr(api, "_device_memory_budget", refuse)
+    from mgard_tpu_torch.utils import log
+    log.reset_counts()
+    comp = mt.get_compressor((17, 17, 17), np.float32, device="cpu")
+    v = torch.from_numpy(_field((17, 17, 17)))
+    exps, words, count, _ = comp.encode_device(v, 1e-3)
+    comp.decode_device(exps, words[:int(count)], 1e-3)
+    assert tt.table_bytes(comp.hier, 4) == 0
+    assert "tables.resident" not in log.counts()
+    assert not log.counts().get("tables.bytes")
+    del comp
     mt.release_cache()
 
 

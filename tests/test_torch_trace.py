@@ -2,7 +2,8 @@
 one ``encode_device`` and one ``decode_device`` record under
 ``torch.profiler``, the spans' silence with the profiler off (the
 outputs the same bits), their host times at ``log.TIME``, and the
-counter of the table bytes that ``ops/tridiag._upload`` queues."""
+counters of the table bytes that ``ops/tridiag._upload`` queues and of
+the calls that ran on resident tables."""
 
 import json
 import math
@@ -14,6 +15,7 @@ from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
 import mgard_tpu_torch as mt
+from mgard_tpu_torch import api
 from mgard_tpu_torch.config import Config
 from mgard_tpu_torch.ops import tridiag as ttd
 from mgard_tpu_torch.utils import log
@@ -155,10 +157,16 @@ def test_spans_print_their_host_ms_at_time(capsys, monkeypatch):
     assert isinstance(log.span("x", 8), log.Timer)
 
 
-def test_table_bytes_counter(monkeypatch):
+@pytest.mark.parametrize("admitted", [True, False],
+                         ids=["resident", "not_admitted"])
+def test_table_bytes_counter(monkeypatch, admitted):
     """``tables.bytes`` adds the bytes of each host table ``_upload`` is
     handed, those of a whole encode and decode with a card faked (the
-    CPU takes the card's table path), and resets."""
+    CPU takes the card's table path), and resets.  Where the hierarchy's
+    tables are kept on the card, a second round trip copies none and
+    ``tables.resident`` counts each encode and decode; where they are not
+    admitted (the card's free memory read as 1 KiB), every call copies
+    its tables again and nothing is counted as resident."""
     log.reset_counts()
     assert log.counts() == {}
     ttd._upload(torch.ones(10, dtype=torch.float32), "cpu")
@@ -172,19 +180,31 @@ def test_table_bytes_counter(monkeypatch):
     log.reset_counts()
     assert log.counts() == {}
 
+    mt.release_cache()                  # each case decides afresh
     handed = []
     upload = ttd._upload
     monkeypatch.setattr(ttd, "_on_card", lambda device: True)
     monkeypatch.setattr(ttd, "_upload", lambda host, device: handed.append(
         host.numel() * host.element_size()) or upload(host, device))
+    if not admitted:
+        monkeypatch.setattr(api, "_device_memory_budget",
+                            lambda device: 1 << 10)
     comp = _compressor((5000,))
     v = _field((5000,))
     _round_trip(comp, v)
     once = sum(handed)
     assert once and log.counts()["tables.bytes"] == once
-    # every call copies its tables again: a second round trip doubles it
     _round_trip(comp, v)
-    assert log.counts()["tables.bytes"] == sum(handed) == 2 * once
+    if admitted:
+        # the tables stay on the card: the second round trip copies none
+        assert log.counts() == {"tables.bytes": once, "tables.resident": 4}
+        assert ttd.resident_bytes() == once
+    else:
+        # every call copies its tables again: a second round trip doubles
+        assert log.counts() == {"tables.bytes": 2 * once}
+        assert sum(handed) == 2 * once and ttd.resident_bytes() == 0
     log.reset_counts()
     assert log.counts() == {}
+    del comp
     mt.release_cache()
+    assert ttd.resident_bytes() == 0
