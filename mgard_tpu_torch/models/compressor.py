@@ -280,40 +280,57 @@ class Compressor:
             out.append(x)
         return pyr, out
 
-    def _scaled_stream(self, v: torch.Tensor, tol: float) -> torch.Tensor:
-        """Decompose and scale into the float stream of the configuration
-        (``compressor.py:202-233``), not rounded."""
+    def _quantized_flat(self, v: torch.Tensor, tol: float):
+        """Decompose + quantize -> (flat int32 stream, or int64 for
+        float64 data; status int32 scalar) (``compressor.py:202-233``):
+        the decomposition, then, inside the span ``mgard.quantize``, the
+        scaling into the float stream of the configuration and
+        :meth:`_rounded`."""
         hier, cfg = self.hier, self.config
+        # each stage's inputs are dropped once it has its output, as the
+        # peaks that api.PEAK_PER_BYTE holds were measured
         if cfg.decomposition == Decomposition.HYBRID:
             pyr, details = th.decompose_hybrid(
                 self._hybrid_hc, v, self._hybrid_k, ops=self._hybrid_ops)
-            pyr, details = self._hybrid_scale(pyr, details, tol, False)
-            return th.flatten_hybrid(self._hybrid_hc, pyr, details)
+            with span("mgard.quantize"):
+                pyr, details = self._hybrid_scale(pyr, details, tol, False)
+                scaledf = th.flatten_hybrid(self._hybrid_hc, pyr, details)
+                del pyr, details
+                return self._rounded(scaledf, v)
         if cfg.decomposition == Decomposition.SINGLEDIM:
             coarse, slabs = sd.decompose_sd(hier, v)
-            coarse, slabs = sd.scale_slabs(hier, coarse, slabs, self.s, tol)
-            return sd.flatten_slabs(hier, coarse, slabs)
+            with span("mgard.quantize"):
+                coarse, slabs = sd.scale_slabs(hier, coarse, slabs, self.s,
+                                               tol)
+                scaledf = sd.flatten_slabs(hier, coarse, slabs)
+                del coarse, slabs
+                return self._rounded(scaledf, v)
         pyr = transform.decompose(hier, v)
-        if cfg.layout == Layout.LEVEL_BLOCKS:
-            blocks = transform.pyramid_to_blocks(hier, pyr)
-            del pyr
-            return torch.cat([b.reshape(-1) for b in
-                              scale_blocks(hier, blocks, self.s, tol)])
-        spyr = scale_pyramid(hier, pyr, self.s, tol)
-        del pyr
-        if cfg.layout == Layout.FINE:
-            return transform.pyramid_to_fine(hier, spyr).reshape(-1)
-        return torch.cat([p.reshape(-1) for p in spyr])
+        with span("mgard.quantize"):
+            if cfg.layout == Layout.LEVEL_BLOCKS:
+                blocks = transform.pyramid_to_blocks(hier, pyr)
+                del pyr
+                scaledf = torch.cat([b.reshape(-1) for b in
+                                     scale_blocks(hier, blocks, self.s, tol)])
+                del blocks
+            else:
+                spyr = scale_pyramid(hier, pyr, self.s, tol)
+                del pyr
+                scaledf = transform.pyramid_to_fine(hier, spyr).reshape(-1) \
+                    if cfg.layout == Layout.FINE \
+                    else torch.cat([p.reshape(-1) for p in spyr])
+                del spyr
+            return self._rounded(scaledf, v)
 
-    def _quantized_flat(self, v: torch.Tensor, tol: float):
-        """Decompose + quantize -> (flat int32 stream, or int64 for
-        float64 data; status int32 scalar) (``compressor.py:202``).
+    @staticmethod
+    def _rounded(scaledf: torch.Tensor, v: torch.Tensor):
+        """The scaled float stream rounded to integers -> (flat int32
+        stream, or int64 for float64 data; status int32 scalar).
 
         The status guards read the float stream before the integer cast
         (which would saturate or wrap silently): 1 when max|scaled| is not
         below the ceiling (2^31 - 1, or 2^62 for float64; a NaN fails the
-        test too), 2 when the input holds a NaN or an Inf."""
-        scaledf = self._scaled_stream(v, tol)
+        test too), 2 when the input ``v`` holds a NaN or an Inf."""
         wide = scaledf.dtype == torch.float64
         flat = round_quantize(scaledf, torch.int64 if wide else torch.int32)
         limit = 2.0 ** 62 if wide else 2.0 ** 31 - 1
@@ -325,26 +342,35 @@ class Compressor:
 
     def _flat_to_array(self, flat: torch.Tensor, tol: float) -> torch.Tensor:
         """Dequantize + recompose a flat integer stream (inverse of
-        :meth:`_quantized_flat`; ``compressor.py:258``)."""
+        :meth:`_quantized_flat`; ``compressor.py:258``): the split and the
+        dequantization inside the span ``mgard.dequantize``, then the
+        recomposition."""
         hier, cfg = self.hier, self.config
         if cfg.decomposition == Decomposition.HYBRID:
-            # the global part is split in fine order after the cast to
-            # the data's dtype, as the JAX package splits it
-            pyr, details = th.unflatten_hybrid(
-                self._hybrid_hc, flat.to(TORCH_DTYPE[self.dtype]),
-                hier.shape, self._hybrid_k)
-            pyr, details = self._hybrid_scale(pyr, details, tol, True)
+            with span("mgard.dequantize"):
+                # the global part is split in fine order after the cast to
+                # the data's dtype, as the JAX package splits it
+                pyr, details = th.unflatten_hybrid(
+                    self._hybrid_hc, flat.to(TORCH_DTYPE[self.dtype]),
+                    hier.shape, self._hybrid_k)
+                pyr, details = self._hybrid_scale(pyr, details, tol, True)
             return th.recompose_hybrid(self._hybrid_hc, pyr, details,
                                        hier.shape, ops=self._hybrid_ops)
         if cfg.decomposition == Decomposition.SINGLEDIM:
-            coarse, slabs = sd.unflatten_slabs(hier, flat)
-            coarse, slabs = sd.unscale_slabs(hier, coarse, slabs, self.s,
-                                             tol, self.dtype)
+            with span("mgard.dequantize"):
+                coarse, slabs = sd.unflatten_slabs(hier, flat)
+                coarse, slabs = sd.unscale_slabs(hier, coarse, slabs, self.s,
+                                                 tol, self.dtype)
             return sd.recompose_sd(hier, coarse, slabs)
-        if cfg.layout == Layout.FINE:
-            # the integer stream is split with slices (K1 is float32 only)
-            qpyr = transform.fine_to_pyramid(hier, flat.reshape(hier.shape))
-        elif cfg.layout == Layout.LEVEL_BLOCKS:
+        with span("mgard.dequantize"):
+            pyr = self._dequantized_pyramid(flat, tol)
+        return transform.recompose(hier, pyr)
+
+    def _dequantized_pyramid(self, flat: torch.Tensor, tol: float) -> list:
+        """The MULTIDIM pyramid of a flat integer stream in the
+        configuration's layout, dequantized."""
+        hier, layout = self.hier, self.config.layout
+        if layout == Layout.LEVEL_BLOCKS:
             qblocks, off = [], 0
             for (_, _, bshape, _) in transform.block_specs(hier):
                 size = math.prod(bshape)
@@ -352,15 +378,16 @@ class Compressor:
                 off += size
             blocks = dequantize_blocks(hier, qblocks, self.s, tol,
                                        self.dtype)
-            return transform.recompose(
-                hier, transform.blocks_to_pyramid(hier, blocks))
+            return transform.blocks_to_pyramid(hier, blocks)
+        if layout == Layout.FINE:
+            # the integer stream is split with slices (K1 is float32 only)
+            qpyr = transform.fine_to_pyramid(hier, flat.reshape(hier.shape))
         else:
             qpyr, off = [], 0
             for shp, size in zip(hier.shapes, self._seg_sizes):
                 qpyr.append(flat[off:off + size].reshape(shp))
                 off += size
-        pyr = dequantize_pyramid(hier, qpyr, self.s, tol, self.dtype)
-        return transform.recompose(hier, pyr)
+        return dequantize_pyramid(hier, qpyr, self.s, tol, self.dtype)
 
     # ------------------------------------------------------------------
     # device work

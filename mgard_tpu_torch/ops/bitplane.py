@@ -260,24 +260,26 @@ def encode(q: torch.Tensor, C: int = 0):
     count int64 scalar)``; only ``words[:count]`` is meaningful.  Value
     ``i*C + g`` of chunk c is row i, column g of its (32, C) block.
     """
-    C = C or CHUNK_GROUPS
-    nchunks = num_chunks_tiled(q.numel(), C)
-    zc = _zigzag(chunked(q, nchunks, C))
-    e = _chunk_exponents(zc)
-    offsets = _offsets(e)
-    words = torch.zeros(max_words(q.numel(), C), dtype=torch.int32,
-                        device=q.device)
-    bp_encode_condense(zc, offsets, e, words)
-    return e.to(torch.uint8), words, e.sum(dtype=torch.int64) * C
+    with span("mgard.bitplane"):
+        C = C or CHUNK_GROUPS
+        nchunks = num_chunks_tiled(q.numel(), C)
+        zc = _zigzag(chunked(q, nchunks, C))
+        e = _chunk_exponents(zc)
+        offsets = _offsets(e)
+        words = torch.zeros(max_words(q.numel(), C), dtype=torch.int32,
+                            device=q.device)
+        bp_encode_condense(zc, offsets, e, words)
+        return e.to(torch.uint8), words, e.sum(dtype=torch.int64) * C
 
 
 def decode(exponents: torch.Tensor, words: torch.Tensor, n: int,
            C: int = 0) -> torch.Tensor:
     """Inverse of :func:`encode`: int32 (n,).  ``words`` needs to hold
     only the stream's rows (``bitplane.py:396``)."""
-    C = C or CHUNK_GROUPS
-    e = exponents.to(torch.int32)
-    return bp_decode_condense(words, C, _offsets(e), e, int(n))
+    with span("mgard.bitplane"):
+        C = C or CHUNK_GROUPS
+        e = exponents.to(torch.int32)
+        return bp_decode_condense(words, C, _offsets(e), e, int(n))
 
 
 # ---------------------------------------------------------------------------
@@ -320,40 +322,42 @@ def encode_pergroup(q: torch.Tensor):
     Returns ``(exponents uint8 (G,), words int32 (G*33,), count int64
     scalar)``; ``words`` is zero past ``count``.
     """
-    sign, planes, ngroups = _to_rows(q)
-    dev = q.device
-    bit_idx = torch.arange(1, GROUP + 1, device=dev)[:, None]
-    e = torch.where(planes != 0, bit_idx, 0).amax(0)            # (G,)
-    counts = torch.where(e > 0, e + 1, 0)
-    ends = torch.cumsum(counts, 0)
-    offsets = ends - counts
-    slot = torch.arange(GROUP + 1, device=dev)[:, None]         # (33, 1)
-    valid = (slot <= e[None, :]) & (e[None, :] > 0)
-    plane_idx = (e[None, :] - slot).clamp(0, GROUP - 1)
-    vals = torch.where(slot == 0, sign[None, :],
-                       planes.gather(0, plane_idx))
-    words = torch.zeros(ngroups * (GROUP + 1), dtype=torch.int32,
-                        device=dev)
-    words[(offsets[None, :] + slot)[valid]] = _wrap_i32(vals[valid])
-    return e.to(torch.uint8), words, ends[-1]
+    with span("mgard.bitplane"):
+        sign, planes, ngroups = _to_rows(q)
+        dev = q.device
+        bit_idx = torch.arange(1, GROUP + 1, device=dev)[:, None]
+        e = torch.where(planes != 0, bit_idx, 0).amax(0)            # (G,)
+        counts = torch.where(e > 0, e + 1, 0)
+        ends = torch.cumsum(counts, 0)
+        offsets = ends - counts
+        slot = torch.arange(GROUP + 1, device=dev)[:, None]         # (33, 1)
+        valid = (slot <= e[None, :]) & (e[None, :] > 0)
+        plane_idx = (e[None, :] - slot).clamp(0, GROUP - 1)
+        vals = torch.where(slot == 0, sign[None, :],
+                           planes.gather(0, plane_idx))
+        words = torch.zeros(ngroups * (GROUP + 1), dtype=torch.int32,
+                            device=dev)
+        words[(offsets[None, :] + slot)[valid]] = _wrap_i32(vals[valid])
+        return e.to(torch.uint8), words, ends[-1]
 
 
 def decode_pergroup(exponents: torch.Tensor, words: torch.Tensor, n: int
                     ) -> torch.Tensor:
     """Inverse of :func:`encode_pergroup` (``bitplane.py:626``): int32
     (n,); one exponent per group, ``32 * len(exponents) >= n``."""
-    e = exponents.long()
-    counts = torch.where(e > 0, e + 1, 0)
-    offsets = torch.cumsum(counts, 0) - counts
-    w = words.long() & _U32
-    if w.numel() == 0:
-        w = w.new_zeros(1)
-    last = w.numel() - 1
-    sign = torch.where(e > 0, w[offsets.clamp(0, last)], 0)
-    b = torch.arange(GROUP, device=words.device)[:, None]
-    idx = offsets[None, :] + e[None, :] - b
-    planes = torch.where(b < e[None, :], w[idx.clamp(0, last)], 0)
-    return _from_rows(sign, planes, int(n))
+    with span("mgard.bitplane"):
+        e = exponents.long()
+        counts = torch.where(e > 0, e + 1, 0)
+        offsets = torch.cumsum(counts, 0) - counts
+        w = words.long() & _U32
+        if w.numel() == 0:
+            w = w.new_zeros(1)
+        last = w.numel() - 1
+        sign = torch.where(e > 0, w[offsets.clamp(0, last)], 0)
+        b = torch.arange(GROUP, device=words.device)[:, None]
+        idx = offsets[None, :] + e[None, :] - b
+        planes = torch.where(b < e[None, :], w[idx.clamp(0, last)], 0)
+        return _from_rows(sign, planes, int(n))
 
 
 # ---------------------------------------------------------------------------
@@ -367,28 +371,30 @@ def encode64(q: torch.Tensor, C: int = 0):
     Returns ``(exponents uint8 (num_chunks64_tiled,), words int32 (cap,),
     count int64 scalar)``; only ``words[:count]`` is meaningful.
     """
-    C = C or WIDE_CHUNK_GROUPS
-    nchunks = num_chunks64_tiled(q.numel(), C)
-    zc = _zigzag(chunked(q, nchunks, C))
-    e = _bit_length64(_umax(zc, _I64_MIN))
-    offsets = _offsets(e)
-    words = torch.zeros(max_words64(q.numel(), C), dtype=torch.int32,
-                        device=q.device)
-    planes = torch.cat([butterfly(zc & _U32, 1),
-                        butterfly((zc >> 32) & _U32, 1)], 1)
-    del zc
-    scatter_planes(planes, offsets, e, words)
-    return e.to(torch.uint8), words, e.sum(dtype=torch.int64) * C
+    with span("mgard.bitplane"):
+        C = C or WIDE_CHUNK_GROUPS
+        nchunks = num_chunks64_tiled(q.numel(), C)
+        zc = _zigzag(chunked(q, nchunks, C))
+        e = _bit_length64(_umax(zc, _I64_MIN))
+        offsets = _offsets(e)
+        words = torch.zeros(max_words64(q.numel(), C), dtype=torch.int32,
+                            device=q.device)
+        planes = torch.cat([butterfly(zc & _U32, 1),
+                            butterfly((zc >> 32) & _U32, 1)], 1)
+        del zc
+        scatter_planes(planes, offsets, e, words)
+        return e.to(torch.uint8), words, e.sum(dtype=torch.int64) * C
 
 
 def decode64(exponents: torch.Tensor, words: torch.Tensor, n: int,
              C: int = 0) -> torch.Tensor:
     """Inverse of :func:`encode64`: int64 (n,)."""
-    C = C or WIDE_CHUNK_GROUPS
-    e = exponents.to(torch.int32)
-    planes = gather_planes(words, C, _offsets(e), e, 2 * GROUP)
-    z = butterfly(planes[:, :GROUP], 1) \
-        | (butterfly(planes[:, GROUP:], 1) << 32)
-    del planes
-    out = ((z >> 1) & (2 ** 63 - 1)) ^ -(z & 1)
-    return out.reshape(-1)[:int(n)]
+    with span("mgard.bitplane"):
+        C = C or WIDE_CHUNK_GROUPS
+        e = exponents.to(torch.int32)
+        planes = gather_planes(words, C, _offsets(e), e, 2 * GROUP)
+        z = butterfly(planes[:, :GROUP], 1) \
+            | (butterfly(planes[:, GROUP:], 1) << 32)
+        del planes
+        out = ((z >> 1) & (2 ** 63 - 1)) ^ -(z & 1)
+        return out.reshape(-1)[:int(n)]

@@ -15,7 +15,9 @@ A span is seen two ways, and costs nothing where neither asks for it:
 
 The encode and decode name their stages (``mgard.encode``,
 ``mgard.decompose``, ``mgard.level.<l>``, ``mgard.correction``,
-``mgard.bitplane``; ``mgard.decode``, ``mgard.recompose``).  Counters
+``mgard.quantize`` on the flat route, ``mgard.bitplane`` around every
+codec; ``mgard.decode``, ``mgard.dequantize`` on the flat route,
+``mgard.recompose``).  Counters
 are always on: ``tables.bytes`` holds the bytes of the host tables that
 ``ops/tridiag._upload`` has queued to a card, ``tables.resident`` the
 encodes and decodes that ran on tables kept on the card

@@ -1,7 +1,9 @@
 """mgard_tpu_torch's spans and counters, on the CPU: the span tree that
 one ``encode_device`` and one ``decode_device`` record under
-``torch.profiler``, the spans' silence with the profiler off (the
-outputs the same bits), their host times at ``log.TIME``, and the
+``torch.profiler`` on the segmented route, and the flat route's
+quantize, codec and dequantize spans on each flat codec; the spans'
+silence with the profiler off (the outputs the same bits), their host
+times at ``log.TIME``, and the
 counters of the table bytes that ``ops/tridiag._upload`` queues and of
 the calls that ran on resident tables."""
 
@@ -16,7 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import mgard_tpu_torch as mt
 from mgard_tpu_torch import api
-from mgard_tpu_torch.config import Config
+from mgard_tpu_torch.config import Config, Layout
 from mgard_tpu_torch.ops import tridiag as ttd
 from mgard_tpu_torch.utils import log
 
@@ -51,6 +53,8 @@ def _round_trip(comp, v):
 
 
 def _bits(t):
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -208,3 +212,96 @@ def test_table_bytes_counter(monkeypatch, admitted):
     del comp
     mt.release_cache()
     assert ttd.resident_bytes() == 0
+
+
+# the flat route on each of its codecs: float64 data on the wide codec
+# (the benchmark's Miranda cell), float32 under 2^22 values on the
+# per-group one, and the chunked one under the PYRAMID layout
+FLAT = {"wide": (np.float64, Config()),
+        "grouped": (np.float32, Config()),
+        "chunked": (np.float32, Config(layout=Layout.PYRAMID,
+                                       adapt_lossless=False))}
+FLAT_SHAPE = (16, 24, 24)      # non-dyadic in every dim, as Miranda's
+FLAT_TOL = {np.float64: 1e-8, np.float32: TOL}
+
+
+def _flat(codec):
+    dtype, cfg = FLAT[codec]
+    comp = mt.get_compressor(FLAT_SHAPE, dtype, math.inf, config=cfg,
+                             device="cpu")
+    assert comp._codec(comp.lossless) == codec
+    v = _field(FLAT_SHAPE).to(torch.from_numpy(np.zeros(0, dtype)).dtype)
+    return comp, v, FLAT_TOL[dtype]
+
+
+def _flat_round_trip(comp, v, tol):
+    exponents, words, count, status = comp.encode_device(v, tol)
+    assert int(status) == 0
+    out = comp.decode_device(exponents, words[:int(count)], tol)
+    return exponents, words[:int(count)], out
+
+
+def _one_each(spans, names, within):
+    """One span of each of ``names`` inside ``within``, in that order and
+    disjoint: (name, start, end) of each."""
+    found = [_one(spans, n, within) for n in names]
+    for a, b in zip(found, found[1:]):
+        assert a[2] <= b[1], (a, b)
+    return found
+
+
+@pytest.mark.parametrize("codec", list(FLAT))
+def test_spans_of_the_flat_route(codec, tmp_path):
+    """An encode opens the transform's span, then ``mgard.quantize``, then
+    ``mgard.bitplane``, inside ``mgard.encode``; a decode
+    ``mgard.bitplane``, then ``mgard.dequantize``, then the transform's
+    span, inside ``mgard.decode``."""
+    comp, v, tol = _flat(codec)
+    _flat_round_trip(comp, v, tol)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        exponents, words, count, _ = comp.encode_device(v, tol)
+    enc = _spans(prof, tmp_path)
+    root = _one(enc, "mgard.encode", (None, -math.inf, math.inf))
+    _one_each(enc, ("mgard.decompose", "mgard.quantize", "mgard.bitplane"),
+              root)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        comp.decode_device(exponents, words[:int(count)], tol)
+    dec = _spans(prof, tmp_path)
+    root = _one(dec, "mgard.decode", (None, -math.inf, math.inf))
+    _one_each(dec, ("mgard.bitplane", "mgard.dequantize", "mgard.recompose"),
+              root)
+    assert "mgard.dequantize" not in {s[0] for s in enc}
+    assert "mgard.quantize" not in {s[0] for s in dec}
+
+
+@pytest.mark.parametrize("codec", list(FLAT))
+def test_flat_route_profiler_off_changes_no_bit(codec, monkeypatch):
+    """The stream and the decoded array are the same bits with the
+    profiler on and off, and with it off no ``record_function`` opens."""
+    comp, v, tol = _flat(codec)
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = _flat_round_trip(comp, v, tol)
+
+    def refuse(*args, **kw):
+        raise AssertionError("record_function entered with the profiler "
+                             "off")
+    monkeypatch.setattr(autograd_profiler, "record_function", refuse)
+    monkeypatch.setattr(log, "level", log.ERR | log.WARN)
+    assert log.span("mgard.quantize") is log.span("mgard.dequantize")
+    plain = _flat_round_trip(comp, v, tol)
+    for a, b in zip(traced, plain):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(_bits(a), _bits(b))
+    assert (plain[2] - v).abs().max() <= tol
+
+
+def test_segmented_route_opens_no_quantize_span(tmp_path):
+    """The segmented codec quantizes inside its kernels: its encode and
+    decode open neither ``mgard.quantize`` nor ``mgard.dequantize``."""
+    comp = _compressor((17, 17, 17))
+    v = _field((17, 17, 17))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _round_trip(comp, v)
+    names = {s[0] for s in _spans(prof, tmp_path)}
+    assert "mgard.bitplane" in names
+    assert not names & {"mgard.quantize", "mgard.dequantize"}
